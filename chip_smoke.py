@@ -10,21 +10,30 @@ JAX.  Phases, each of which raises on failure:
    power limit; build every kernel from `sp_orb_slam_tpu_torch/csrc/` (one
    `nvcc` per source, all at once) and print `-Xptxas -v`'s register and
    shared-memory report;
-2. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (B=32, 752x480, K=896) with seeded inputs, then
-   CUDA-event times of the kernel, its plain version and, where one PyTorch
-   call computes the same function, that call;
-3. main path: frames 0 and 2 of the rendered room through
+2. kernels: each of the six kernels against its plain PyTorch version on
+   the card at the main path's shapes (B=32, 752x480, K=896) with seeded
+   inputs, then CUDA-event times of the kernel, its plain version and,
+   where one PyTorch call computes the same function, that call;
+3. frontend paths: frames 0 and 2 of the rendered room through
    `make_extractor(..., device="cuda")` in bfloat16 with the trained
-   weights (weights/sp_rendered.npz), then `match_init_batch`; the launch
-   counters are zeroed just before and read just after; keypoint, match and
-   ray-cast precision gates; the same in float32 with the kernels and with
-   the plain versions, which must agree;
+   weights (weights/sp_rendered.npz), then `match_init_batch`; keypoint,
+   match and ray-cast precision gates; the same in float32 with the kernels
+   and with the plain versions, which must agree; then the float32
+   extractor with desc_method "pallas_sparse" and "pallas" against
+   "gather";
 4. step time: the extract + init-match step of bench.py (B=32, bfloat16)
    as frames/s over the wall time of 50 steps;
 5. profile: the same step under torch.profiler, with the device's idle
-   share and device time per step by layer and by kernel.
+   share and device time per step by layer and by kernel;
+6. SLAM: `System(cfg, params, device="cuda").spin(...)` over the 220 frames
+   of the held-out rendered room at the default configuration (752x480,
+   K=896, float32): gates on LOST frames, the tracked share and the Sim3
+   ATE; ms per frame of `System.process` and of each `Timer` span over an
+   unprofiled spin of the first 215 frames; the device's idle share over
+   the last 5 frames, spun under torch.profiler.
 
+Every path is driven with the launch counters zeroed just before it and
+read just after, and fails if a kernel of that path never launched.
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
 result, without a card or without the repository around it.
@@ -283,7 +292,135 @@ def check_match(gen, dev):
         bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def _unit_coarse(gen, dev):
+    import torch
+
+    return unit_rows(torch.randn((B, H // 8, W // 8, 256), generator=gen,
+                                 device=dev))
+
+
+def check_desc_sparse(gen, dev):
+    import torch
+    import torch.nn.functional as F
+
+    from sp_orb_slam_tpu_torch.models.superpoint import sample_descriptors
+    from sp_orb_slam_tpu_torch.ops import cuda_desc
+
+    hc, wc = H // 8, W // 8
+    coarse = _unit_coarse(gen, dev)
+    # keypoints inside the NMS border, as the extractor emits them
+    uv = torch.stack([8 + torch.rand((B, K), generator=gen, device=dev)
+                      * (W - 16),
+                      8 + torch.rand((B, K), generator=gen, device=dev)
+                      * (H - 16)], -1).contiguous()
+    got = cuda_desc.sample_descriptors_sparse(coarse, uv, (H, W))
+    want = sample_descriptors(coarse, uv, (H, W))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    log(f"desc_sparse: max_abs_err {err:.3e} (tolerance 1e-5)")
+    if err > 1e-5 or not torch.isfinite(got).all():
+        raise AssertionError("desc_sparse disagrees with its plain version")
+    # bytes this data needs: each distinct corner row once, uv, the output
+    gx = (uv[..., 0] * (wc - 1) / W).floor().long().clamp(0, wc - 2)
+    gy = (uv[..., 1] * (hc - 1) / H).floor().long().clamp(0, hc - 2)
+    r0 = gy * wc + gx
+    rows = torch.stack([r0, r0 + 1, r0 + wc, r0 + wc + 1], -1)
+    rows = rows + torch.arange(B, device=dev)[:, None, None] * hc * wc
+    n_rows = int(torch.unique(rows).numel())
+    nbytes = n_rows * 256 * 4 + B * K * 8 + B * K * 256 * 4
+    flops = B * K * 256 * 12.0   # 4 FMAs, the square-sum and the scale
+    bms, by = bound_ms(nbytes, flops, H100_F32)
+    log(f"desc_sparse: {n_rows} distinct corner rows of {B * hc * wc}, "
+        f"{nbytes / 1e6:.1f} MB")
+    nchw = coarse.permute(0, 3, 1, 2)
+    grid = (uv / torch.tensor([W / 2, H / 2], device=dev) - 1)[:, None]
+
+    def library():  # the reference's grid_sample + normalize (yardstick)
+        return F.normalize(F.grid_sample(nchw, grid, align_corners=True),
+                           dim=1)
+
+    lib_err = float((library()[:, :, 0].permute(0, 2, 1) - want).abs().max())
+    log(f"desc_sparse: grid_sample + normalize vs plain {lib_err:.3e}")
+    return dict(
+        name="desc_sparse", route="cuda",
+        source="sp_orb_slam_tpu_torch/csrc/desc_sparse.cu",
+        replaces="sp_orb_slam_tpu/ops/pallas_desc.py:272", max_abs_err=err,
+        ms=cuda_ms(lambda: cuda_desc.sample_descriptors_sparse(
+            coarse, uv, (H, W)), iters=50),
+        plain_ms=cuda_ms(lambda: sample_descriptors(coarse, uv, (H, W)),
+                         iters=10),
+        bound_ms=bms, bound_by=by, library_ms=cuda_ms(library, iters=20))
+
+
+def check_desc_dense(gen, dev):
+    import torch
+    import torch.nn.functional as F
+
+    from sp_orb_slam_tpu_torch.models.superpoint import (
+        sample_descriptors_dense)
+    from sp_orb_slam_tpu_torch.ops import cuda_desc
+
+    hc, wc = H // 8, W // 8
+    coarse = _unit_coarse(gen, dev)
+    u = torch.arange(wc, device=dev) * 8 + torch.randint(
+        0, 8, (B, hc, wc), generator=gen, device=dev)
+    v = torch.arange(hc, device=dev)[:, None] * 8 + torch.randint(
+        0, 8, (B, hc, wc), generator=gen, device=dev)
+    cand = torch.stack([u, v], -1).to(torch.int32).contiguous()
+    got = cuda_desc.sample_descriptors_dense_batch(coarse, cand, (H, W))
+    want = sample_descriptors_dense(coarse, cand, (H, W))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    log(f"desc_dense: max_abs_err {err:.3e} (tolerance 1e-5)")
+    if err > 1e-5 or not torch.isfinite(got).all():
+        raise AssertionError("desc_dense disagrees with its plain version")
+    n = B * hc * wc
+    nbytes = n * 256 * 4 * 2 + n * 8
+    bms, by = bound_ms(nbytes, n * 256 * 12.0, H100_F32)
+    nchw = coarse.permute(0, 3, 1, 2)
+    grid = cand.float() / torch.tensor([W / 2, H / 2], device=dev) - 1
+
+    def library():  # the reference's grid_sample + normalize (yardstick)
+        return F.normalize(F.grid_sample(nchw, grid, align_corners=True),
+                           dim=1)
+
+    lib_err = float((library().permute(0, 2, 3, 1) - want).abs().max())
+    log(f"desc_dense: grid_sample + normalize vs plain {lib_err:.3e}")
+    return dict(
+        name="desc_dense", route="cuda",
+        source="sp_orb_slam_tpu_torch/csrc/desc_dense.cu",
+        replaces="sp_orb_slam_tpu/ops/pallas_desc.py:156", max_abs_err=err,
+        ms=cuda_ms(lambda: cuda_desc.sample_descriptors_dense_batch(
+            coarse, cand, (H, W)), iters=50),
+        plain_ms=cuda_ms(lambda: sample_descriptors_dense(coarse, cand,
+                                                          (H, W)), iters=5),
+        bound_ms=bms, bound_by=by, library_ms=cuda_ms(library, iters=20))
+
+
 # ---------------------------------------------------------------- phase 3
+
+FRONTEND_KERNELS = ("pair1t", "nms", "cov", "match", "desc_sparse")
+SLAM_KERNELS = ("nms", "cov", "match", "desc_sparse")
+
+
+def zero_launches():
+    from sp_orb_slam_tpu_torch.ops import _build
+
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0
+
+
+def read_launches(path, expected):
+    """The counters after a path, which must have launched every kernel in
+    `expected`."""
+    from sp_orb_slam_tpu_torch.ops import _build
+
+    launches = dict(_build.LAUNCHES)
+    log(f"{path} launches: {launches}")
+    missing = [k for k in expected if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing}")
+    return launches
 
 
 def _project(Twc, Kc, X):
@@ -323,7 +460,7 @@ def main_path(state, dev):
     from sp_orb_slam_tpu_torch.config import Config
     from sp_orb_slam_tpu_torch.extractor import make_extractor
     from sp_orb_slam_tpu_torch.io.render import RenderedDataset
-    from sp_orb_slam_tpu_torch.ops import _build, cuda_match
+    from sp_orb_slam_tpu_torch.ops import cuda_match
     from sp_orb_slam_tpu_torch.ops.matching import init_match
 
     cfg = Config()
@@ -345,21 +482,17 @@ def main_path(state, dev):
 
     bf = dataclasses.replace(cfg, extractor=dataclasses.replace(
         cfg.extractor, dtype="bfloat16"))
-    for name in _build.LAUNCHES:
-        _build.LAUNCHES[name] = 0
+    zero_launches()
     feats, m12 = run(bf)
-    launches = dict(_build.LAUNCHES)
-    log(f"main path launches: {launches}")
+    launches = read_launches("frontend (bf16)", FRONTEND_KERNELS)
     gates("bf16 kernels", feats, m12, ds, fa, fb)
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
 
     # float32: kernels (auto on the card) vs the plain versions, and the
     # plain init matcher vs the kernel on the same features
     f_k, m_k = run(cfg)
     plain = dataclasses.replace(cfg, extractor=dataclasses.replace(
-        cfg.extractor, nms_method="xla", cov_method="windowed"))
+        cfg.extractor, nms_method="xla", cov_method="windowed",
+        desc_method="gather"))
     run_p = make_extractor(plain, state, device=dev)
     f_p = run_p(images)
     m_p, _, _ = init_match(*pair(f_k), window=100, ratio=0.9)
@@ -368,13 +501,36 @@ def main_path(state, dev):
     same_uv = torch.equal(f_k.uv, f_p.uv) and torch.equal(f_k.count,
                                                           f_p.count)
     cov_err = float((f_k.cov2 - f_p.cov2).abs().max())
+    desc_err = float((f_k.desc - f_p.desc).abs().max())
     bad, excused = match_disagreements(pair(f_k), m_k, m_p)
     log(f"f32 kernels vs plain: uv/count identical {same_uv}, "
-        f"cov2 max_abs_err {cov_err:.3e}, counts {f_k.count.tolist()}, "
-        f"match12 rows differing {len(bad)} ({excused} near-ties)")
-    if not same_uv or cov_err > 1e-5 or excused != len(bad):
+        f"cov2 max_abs_err {cov_err:.3e}, desc max_abs_err {desc_err:.3e}, "
+        f"counts {f_k.count.tolist()}, match12 rows differing {len(bad)} "
+        f"({excused} near-ties)")
+    if (not same_uv or cov_err > 1e-5 or desc_err > 1e-5
+            or excused != len(bad)):
         raise AssertionError("f32 main path: kernels and plain disagree")
-    return launches
+
+    # the descriptor routes of the f32 extractor against "gather"
+    routes = {}
+    for method in ("pallas_sparse", "pallas"):
+        cfg_m = dataclasses.replace(cfg, extractor=dataclasses.replace(
+            cfg.extractor, desc_method=method))
+        run_m = make_extractor(cfg_m, state, device=dev)
+        zero_launches()
+        f_m = run_m(images)
+        torch.cuda.synchronize()
+        routes[method] = read_launches(
+            f"frontend desc_method={method}",
+            ("desc_sparse",) if method == "pallas_sparse" else ("desc_dense",))
+        same = torch.equal(f_m.uv, f_p.uv) and torch.equal(f_m.count,
+                                                           f_p.count)
+        err = float((f_m.desc - f_p.desc).abs().max())
+        log(f"desc_method={method} vs gather: uv/count identical {same}, "
+            f"desc max_abs_err {err:.3e}")
+        if not same or err > 1e-5:
+            raise AssertionError(f"desc_method={method} disagrees with gather")
+    return launches, routes["pallas"]
 
 
 # ---------------------------------------------------------------- phase 4
@@ -461,6 +617,7 @@ GROUPS = (
     ("match kernels", ("rows_kernel", "finalize_kernel")),
     ("nms kernel", ("nms_kernel",)),
     ("cov kernel", ("cov_kernel",)),
+    ("desc kernel", ("desc_sparse_kernel", "desc_dense_kernel")),
     ("cuDNN / cuBLAS", ("xmma", "cutlass", "nvjet", "cudnn", "gemm")),
 )
 
@@ -503,7 +660,7 @@ def profile_step(step, carry):
         groups[g] = groups.get(g, 0.0) + ms
     lines = [f"profile: batch {B} | {PROFILE_STEPS} steps | wall "
              f"{wall_ms:.3f} ms/step | device busy {busy:.3f} ms/step | "
-             f"idle share {max(0.0, 1 - busy / wall_ms):.3f} | "
+             f"idle share {1 - busy / wall_ms:.3f} | "
              f"{len(rows)} kernel names, {sum(r[1] for r in rows)} "
              f"launches/step"]
     lines += [f"{ms:9.3f} {ms / wall_ms:6.3f}        [{g}]"
@@ -512,6 +669,130 @@ def profile_step(step, carry):
     lines += [f"{ms:9.3f} {ms / wall_ms:6.3f} {n:5d}  {name[:100]}"
               for ms, n, name in rows[:PROFILE_ROWS]]
     return lines
+
+
+# ---------------------------------------------------------------- phase 6
+
+SLAM_FRAMES = 220
+PROFILE_FRAMES = 5    # the spin's last frames, profiled apart from the rest
+SLAM_ROWS = 12        # kernel and CPU-op rows printed
+
+
+def slam_phase(state, dev, smi):
+    """The offline SLAM path on the card over the held-out rendered room
+    (texture seed 5), then the gates.  One System spins the first
+    SLAM_FRAMES - PROFILE_FRAMES frames with no profiler and no synchronize
+    of its own (the pipeline's readbacks are its only waits): the per-frame
+    wall time of `System.process` and the `Timer` spans come from that
+    spin.  The same System then spins the last PROFILE_FRAMES frames under
+    torch.profiler, with one synchronize before and after, for the device's
+    idle share of that window."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sp_orb_slam_tpu_torch.config import Config
+    from sp_orb_slam_tpu_torch.eval.ate import ate_sim3
+    from sp_orb_slam_tpu_torch.io.render import RenderedDataset
+    from sp_orb_slam_tpu_torch.slam.system import System
+
+    cfg = Config()
+    ds = RenderedDataset(cfg, n_frames=SLAM_FRAMES, seed=5, noise_seed=0)
+    # render every frame before the timed run (data is set-up)
+    frames = [ds.frame(i) for i in range(SLAM_FRAMES)]
+    sys_ = System(cfg, params=state, device=dev)
+    spans = {}
+    add = sys_.timer.add
+
+    def add_and_keep(tag, dt):
+        spans.setdefault(tag, []).append(dt * 1e3)
+        add(tag, dt)
+
+    sys_.timer.add = add_and_keep
+    process = sys_.process
+    per_frame = []
+
+    def timed_process(raw):
+        t0 = time.perf_counter()
+        process(raw)
+        per_frame.append((time.perf_counter() - t0) * 1e3)
+
+    sys_.process = timed_process
+    n_timed = SLAM_FRAMES - PROFILE_FRAMES
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sys_.spin(frames[:n_timed])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pf = np.asarray(per_frame)
+    timed_spans = {k: np.asarray(v) for k, v in spans.items()}
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        sys_.spin(frames[n_timed:])
+        torch.cuda.synchronize()
+        win_ms = (time.perf_counter() - t1) * 1e3
+    launches = read_launches("SLAM", SLAM_KERNELS)
+
+    rep = sys_.report()
+    ts, poses = sys_.trajectory()
+    tg, pg = ds.gt_trajectory()
+    ate = ate_sim3(ts, poses[:, :3, 3], tg, pg[:, :3, 3])
+    kern, ops = [], []
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            kern.append((getattr(ev, "self_device_time_total", getattr(
+                ev, "self_cuda_time_total", 0)) / 1e3 / PROFILE_FRAMES,
+                ev.count / PROFILE_FRAMES, ev.key))
+        elif ev.device_type == DeviceType.CPU:
+            ops.append((ev.self_cpu_time_total / 1e3 / PROFILE_FRAMES,
+                        ev.count / PROFILE_FRAMES, ev.key))
+    kern.sort(reverse=True)
+    ops.sort(reverse=True)
+    busy = sum(k[0] for k in kern) * PROFILE_FRAMES
+    n_kern = sum(k[1] for k in kern)
+    lines = [f"SLAM: {SLAM_FRAMES} frames of the rendered room (seed 5) at "
+             f"{cfg.camera.width}x{cfg.camera.height}, K="
+             f"{cfg.runtime.max_keypoints}, {cfg.extractor.dtype} | {smi}",
+             f"SLAM: unprofiled spin of frames 0-{n_timed - 1}: wall "
+             f"{wall:.3f} s, {wall * 1e3 / n_timed:.2f} ms/frame | "
+             f"System.process ms/frame median {np.median(pf):.2f} p90 "
+             f"{np.percentile(pf, 90):.2f} mean {pf.mean():.2f} max "
+             f"{pf.max():.2f} | {smi}"]
+    for tag in ("tracking/frame", "tracking/total", "mapping"):
+        v = timed_spans.get(tag, np.zeros(1))
+        lines.append(f"SLAM span {tag}: median {np.median(v):.2f} p90 "
+                     f"{np.percentile(v, 90):.2f} mean {v.mean():.2f} max "
+                     f"{v.max():.2f} ms (n={len(v)}) | {smi}")
+    # no floor on the idle share: a device sum above the wall time shows
+    lines.append(f"SLAM profile: frames {n_timed}-{SLAM_FRAMES - 1} | wall "
+                 f"{win_ms / PROFILE_FRAMES:.2f} ms/frame (profiler on) | "
+                 f"device busy {busy / PROFILE_FRAMES:.2f} ms/frame | idle "
+                 f"share {1 - busy / win_ms:.3f} | "
+                 f"{n_kern:.0f} device events/frame | {smi}")
+    lines.append(f"{'ms/frame':>9} {'calls':>7}  kernel (top {SLAM_ROWS})")
+    lines += [f"{ms:9.3f} {n:7.0f}  {k[:100]}" for ms, n, k in
+              kern[:SLAM_ROWS]]
+    lines.append(f"{'ms/frame':>9} {'calls':>7}  CPU op, self time "
+                 f"(top {SLAM_ROWS})")
+    lines += [f"{ms:9.3f} {n:7.0f}  {k[:100]}" for ms, n, k in
+              ops[:SLAM_ROWS]]
+    lines.append(f"SLAM result: {json.dumps(rep, default=float)} | ATE "
+                 f"rmse {ate.rmse:.4f} mean {ate.mean:.4f} over "
+                 f"{ate.n_pairs} frames | {smi}")
+    log("\n".join(lines))
+    if not (rep["n_lost"] == 0 and rep["n_frames"] >= 0.8 * SLAM_FRAMES
+            and ate.rmse < 0.2):
+        raise AssertionError("SLAM gates failed (0 LOST, >= 80 % tracked, "
+                             "ATE rmse < 0.2)")
+    if launches["desc_sparse"] != SLAM_FRAMES:
+        raise AssertionError(f"desc_sparse launched "
+                             f"{launches['desc_sparse']} times for "
+                             f"{SLAM_FRAMES} frames")
+    return launches
 
 
 def main() -> int:
@@ -549,16 +830,28 @@ def main() -> int:
     state = load_checkpoint(os.path.join(HERE, "weights", "sp_rendered.npz"))
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = [check_pair1t(state, gen, dev), check_nms(gen, dev),
-            check_cov(gen, dev), check_match(gen, dev)]
-    launches = main_path(state, dev)
+            check_cov(gen, dev), check_match(gen, dev),
+            check_desc_sparse(gen, dev), check_desc_dense(gen, dev)]
+    front, dense_route = main_path(state, dev)
     step = make_step(state, dev)
     stats, carry = step_fps(step)
     log(f"step: {json.dumps(stats)} | {smi}")
     log("\n".join(profile_step(step, carry)))
+    slam = slam_phase(state, dev, smi)
+    # each kernel's launches on the path that runs it: the SLAM path for
+    # its kernels, the bf16 frontend for pair1t, desc_method="pallas" for
+    # desc_dense
     for r in rows:
-        r["launches"] = launches[r["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        if r["name"] in SLAM_KERNELS:
+            r["path"], r["launches"] = "slam", slam[r["name"]]
+        elif r["name"] == "desc_dense":
+            r["path"], r["launches"] = "frontend_pallas", dense_route[
+                "desc_dense"]
+        else:
+            r["path"], r["launches"] = "frontend_bf16", front[r["name"]]
+    keys = ("name", "route", "source", "replaces", "path", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 The JAX package `sp_orb_slam_tpu` is the reference; this package imports
 nothing of it and nothing of JAX.  Ported so far: the learned frontend
-(`extractor.make_extractor`) and the init matcher
-(`ops.cuda_match.match_init_batch`), with their four TPU kernels as
+(`extractor.make_extractor`), the init matcher
+(`ops.cuda_match.match_init_batch`) and the offline SLAM path
+(`slam.system.System`, `run_vo`), with six of the seven TPU kernels as
 hand-written CUDA kernels in `csrc/` (built on first use by `ops/_build.py`).
 Entry points run on the card unless the caller passes `device="cpu"`.
 """

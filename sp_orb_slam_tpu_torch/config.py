@@ -263,7 +263,12 @@ class ExtractorConfig:
     #                            windowed fill (ops/cuda_cov.py kernel vs
     #                            ops/covariance.py)
     desc_method: str = "auto"  # descriptor bilinear sampling: "auto" =
-    #                            "gather" (per-keypoint 4-corner gather)
+    #                            "pallas_sparse" (the sparse sampling
+    #                            kernel, ops/cuda_desc.py) on a CUDA device,
+    #                            "gather" (plain 4-corner gather) on the
+    #                            CPU; "pallas" / "dense" sample every cell's
+    #                            candidate (kernel / plain stencil) and pick
+    #                            each keypoint's row
     conv_packing: str = "auto"  # "auto" = the fused first-conv-pair kernel
     #                             ("pair1t", ops/cuda_pair1t.py) on the
     #                             bfloat16 path on a CUDA device, "none"

@@ -3,10 +3,10 @@
 The port of the JAX package's extractor.py (reference
 SPExtractor::operator(), src/cv/sp_extractor.cpp:361-514): frontend forward
 + grid NMS + score cap + raster emission with occ_grid + descriptor sampling
-+ covariance, batched over streams.  On a CUDA device the four hand-written
++ covariance, batched over streams.  On a CUDA device the hand-written
 kernels carry the path: the fused first conv pair (bfloat16), the NMS fixed
-point and the covariance fill (ops/cuda_*.py); the plain PyTorch versions
-run on the CPU.
+point, the descriptor sampling and the covariance fill (ops/cuda_*.py); the
+plain PyTorch versions run on the CPU.
 """
 
 from __future__ import annotations
@@ -16,9 +16,9 @@ from typing import NamedTuple
 import torch
 
 from sp_orb_slam_tpu_torch.config import Config
-from sp_orb_slam_tpu_torch.models.superpoint import (SuperPoint,
-                                                     sample_descriptors)
-from sp_orb_slam_tpu_torch.ops import cuda_cov, cuda_nms
+from sp_orb_slam_tpu_torch.models.superpoint import (
+    SuperPoint, sample_descriptors, sample_descriptors_dense)
+from sp_orb_slam_tpu_torch.ops import cuda_cov, cuda_desc, cuda_nms
 from sp_orb_slam_tpu_torch.ops import covariance as cov_ops
 from sp_orb_slam_tpu_torch.ops import nms as nms_ops
 
@@ -55,8 +55,12 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
     point), `cov_method` "cuda" or "windowed" (plain fill), `conv_packing`
     "pair1t" (fused first-pair kernel, bfloat16) or "none"; "auto" picks the
     kernels on a CUDA device (pair1t when bfloat16, H % 8 == 0 and
-    W % 2 == 0) and the plain versions on the CPU.  `desc_method` is
-    "gather" (4-corner sampling at each keypoint)."""
+    W % 2 == 0) and the plain versions on the CPU.  `desc_method`:
+    "gather" (plain 4-corner sampling at each keypoint), "pallas_sparse"
+    (the sparse sampling kernel), "dense" (plain 9-tap stencil at every
+    cell's candidate, then each keypoint's own cell row), "pallas" (the
+    dense kernel, then the row pick); "auto" is "pallas_sparse" on a CUDA
+    device and "gather" on the CPU.  All four agree to float32 rounding."""
     if cov_radius > border:
         # the border filter is what keeps the (2r+1)^2 covariance window
         # centred on its keypoint; a clipped window de-centres the fill
@@ -72,7 +76,9 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
         cov_method = "cuda" if on_cuda else "windowed"
     if nms_method == "auto":
         nms_method = "cuda" if on_cuda else "xla"
-    if desc_method not in ("auto", "gather"):
+    if desc_method == "auto":
+        desc_method = "pallas_sparse" if on_cuda else "gather"
+    if desc_method not in ("gather", "pallas_sparse", "dense", "pallas"):
         raise ValueError(f"unknown desc_method {desc_method!r}")
 
     out = model(images, conf_thresh=conf_thresh, conv_packing=conv_packing,
@@ -94,7 +100,26 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
         max_keypoints=max_keypoints, image_hw=(H, W), dist=nms_dist,
         border=border, nms_iters=nms_iters, alive=alive)
 
-    desc = sample_descriptors(out.coarse_desc, kps.uv, (H, W))
+    if desc_method in ("dense", "pallas"):
+        # every cell's candidate, then each keypoint's own cell row (a
+        # keypoint's uv is its cell's candidate uv)
+        if desc_method == "pallas":
+            dense = cuda_desc.sample_descriptors_dense_batch(
+                out.coarse_desc.contiguous(), out.cand_uv.contiguous(),
+                (H, W))
+        else:
+            dense = sample_descriptors_dense(out.coarse_desc, out.cand_uv,
+                                             (H, W))
+        hc, wc = H // 8, W // 8
+        cy = (kps.uv[..., 1].long() // 8).clamp(0, hc - 1)
+        cx = (kps.uv[..., 0].long() // 8).clamp(0, wc - 1)
+        rows = (cy * wc + cx)[..., None].expand(-1, -1, dense.shape[-1])
+        desc = torch.gather(dense.reshape(B, hc * wc, -1), 1, rows)
+    elif desc_method == "pallas_sparse":
+        desc = cuda_desc.sample_descriptors_sparse(
+            out.coarse_desc.contiguous(), kps.uv.contiguous(), (H, W))
+    else:
+        desc = sample_descriptors(out.coarse_desc, kps.uv, (H, W))
     desc = torch.where(kps.valid[..., None], desc, 0.0)
 
     if cov_method == "cuda":

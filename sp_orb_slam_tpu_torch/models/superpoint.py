@@ -209,3 +209,41 @@ def sample_descriptors(coarse: torch.Tensor, uv: torch.Tensor,
             + du * dv * corner(y1, x1))
     norm = torch.linalg.vector_norm(desc, dim=-1, keepdim=True)
     return desc / norm.clamp_min(1e-12)
+
+
+def sample_descriptors_dense(coarse: torch.Tensor, cand_uv: torch.Tensor,
+                             image_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinear descriptor sampling for every cell's candidate keypoint as a
+    9-tap stencil (the plain version of ops/cuda_desc.py's dense kernel).
+
+    The candidate of cell (i, j) samples at x_c = u (wc - 1) / W with u in
+    [8j, 8j + 7], inside (j - 1, j + 1): its four bilinear corners fall in
+    the 3x3 cell neighbourhood.  Each corner weight is folded onto the
+    (dy, dx) shift it lands on, then the nine edge-clamped shifts of the
+    map are summed.  coarse (B, hc, wc, D); cand_uv (B, hc, wc, 2) ->
+    (B, hc, wc, D) unit rows, equal to `sample_descriptors` at each cell's
+    candidate."""
+    H, W = image_hw
+    B, hc, wc, D = coarse.shape
+    gx = cand_uv[..., 0].float() * (wc - 1) / W
+    gy = cand_uv[..., 1].float() * (hc - 1) / H
+    x0 = gx.floor().long().clamp(0, wc - 1)
+    y0 = gy.floor().long().clamp(0, hc - 1)
+    x1 = (x0 + 1).clamp(max=wc - 1)
+    y1 = (y0 + 1).clamp(max=hc - 1)
+    du = gx - x0
+    dv = gy - y0
+    ci = torch.arange(hc, device=coarse.device)[:, None]
+    cj = torch.arange(wc, device=coarse.device)[None, :]
+    corners = ((y0, x0, (1 - du) * (1 - dv)), (y0, x1, du * (1 - dv)),
+               (y1, x0, (1 - du) * dv), (y1, x1, du * dv))
+    desc = torch.zeros_like(coarse)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            w = sum(((yy - ci == dy) & (xx - cj == dx)).float() * wt
+                    for yy, xx, wt in corners)
+            rows = (ci + dy).clamp(0, hc - 1)
+            cols = (cj + dx).clamp(0, wc - 1)
+            desc = desc + w[..., None] * coarse[:, rows, cols]
+    norm = torch.linalg.vector_norm(desc, dim=-1, keepdim=True)
+    return desc / norm.clamp_min(1e-12)

@@ -1,11 +1,13 @@
-"""Descriptor matching as masked distance ops: the init matcher.
+"""Descriptor matching as masked distance ops.
 
-The part of the JAX package's ops/matching.py that the frontend slice needs
-(SearchForInitialization, src/cv/sp_matcher.cpp:666-734): the full pairwise
-L2 matrix of unit descriptors (||a-b|| = sqrt(2 - 2 a.b)), a square window
-mask, best + second with the first minimal index, the ratio test at TH_LOW
-and mutual uniqueness by minimum distance, then the smaller row.  Every
-function takes any leading batch dimensions.
+The port of the JAX package's ops/matching.py (the SPMatcher family,
+src/cv/sp_matcher.cpp): the full pairwise L2 matrix of unit descriptors
+(||a-b|| = sqrt(2 - 2 a.b), a full-float32 matmul), and every Search*
+variant as a different mask over it: best + second with the first minimal
+index, then uniqueness by minimum distance, then the smaller row (the
+reference's first-come order becomes order-independent).  The init matcher
+takes any leading batch dimensions; the tracking and mapping matchers work
+on one frame.
 
 Constants (sp_matcher.cpp:18-19): TH_HIGH = 0.7, TH_LOW = 0.3.
 """
@@ -100,3 +102,101 @@ def search_for_initialization(desc1, valid1, prev_uv, desc2, uv2, valid2,
     match12, n, _ = init_match(desc1, valid1, prev_uv, desc2, uv2, valid2,
                                window=window, ratio=ratio)
     return InitMatches(match12, n)
+
+
+def search_by_projection_points(mp_desc, mp_proj_uv, mp_view_cos, mp_valid,
+                                kp_desc, kp_uv, kp_valid, kp_free, *,
+                                th: float, match_adaptive: bool,
+                                c2_thresh: float, th_dist: float = TH_HIGH):
+    """SearchByProjection frame vs. local-map points (sp_matcher.cpp:
+    344-432): window radius RadiusByViewingCos (2.5 if viewCos > 0.998 else
+    4.0) times `th` over the free keypoints; accept best <= th_dist, else
+    the adaptive gate 1.2 c2 / (c2 + duv).  Returns (match (P,) keypoint or
+    -1, match21 (K,) point or -1)."""
+    radius = torch.where(mp_view_cos > 0.998, 2.5, 4.0) * th
+    du = kp_uv[None, :, 0] - mp_proj_uv[:, None, 0]
+    dv = kp_uv[None, :, 1] - mp_proj_uv[:, None, 1]
+    mask = ((du.abs() < radius[:, None]) & (dv.abs() < radius[:, None])
+            & mp_valid[:, None] & (kp_valid & kp_free)[None, :])
+    best, idx, _ = masked_best2(pairwise_dist(mp_desc, kp_desc), mask)
+    col = idx.long()[:, None]
+    duv = du.gather(1, col)[:, 0] ** 2 + dv.gather(1, col)[:, 0] ** 2
+    if match_adaptive:
+        fallback = best < (1.2 * c2_thresh / (c2_thresh + duv))
+    else:
+        fallback = best < 0.7
+    row_ok = mp_valid & (best < BIG) & ((best <= th_dist) | fallback)
+    return resolve_mutual(idx, best, row_ok, kp_desc.shape[0])
+
+
+def search_by_projection_frame(mp_desc, mp_proj_uv, mp_depth_ok, mp_valid,
+                               kp_desc, kp_uv, kp_valid, kp_free, *,
+                               radius: float, bounds):
+    """SearchByProjection current vs. last frame (sp_matcher.cpp:
+    1439-1543): fixed-radius window around each projected point, accept
+    best <= TH_HIGH."""
+    in_img = ((mp_proj_uv[:, 0] >= bounds[0])
+              & (mp_proj_uv[:, 0] <= bounds[1])
+              & (mp_proj_uv[:, 1] >= bounds[2])
+              & (mp_proj_uv[:, 1] <= bounds[3]))
+    ok = mp_valid & mp_depth_ok & in_img
+    mask = window_mask(mp_proj_uv, ok, kp_uv, kp_valid & kp_free, radius)
+    best, idx, _ = masked_best2(pairwise_dist(mp_desc, kp_desc), mask)
+    return resolve_mutual(idx, best, ok & (best <= TH_HIGH),
+                          kp_desc.shape[0])
+
+
+def search_by_brute_force(mp_desc, mp_valid, kp_desc, kp_valid):
+    """SearchByBruteForce KF -> frame (sp_matcher.cpp:1642-1674): mutual
+    nearest neighbours, no distance threshold.  Returns (K,) int32 index
+    into the point rows for each keypoint, -1 if not mutual-best."""
+    dist = pairwise_dist(mp_desc, kp_desc)  # (P, K)
+    d = torch.where(mp_valid[:, None] & kp_valid[None, :], dist, BIG)
+    best_k_for_p = d.argmin(1)
+    best_p_for_k = d.argmin(0)
+    K = kp_desc.shape[0]
+    mutual = (best_k_for_p[best_p_for_k]
+              == torch.arange(K, device=d.device)) & kp_valid
+    finite = d.gather(0, best_p_for_k[None, :])[0] < BIG
+    return torch.where(mutual & finite, best_p_for_k, -1).to(torch.int32)
+
+
+def search_for_triangulation(desc1, valid1, free1, desc2, uv2, valid2, free2,
+                             epipole2_uv, F12, uv1, cov2_inv2, *,
+                             ratio: float = 0.7):
+    """SearchForTriByFlann (sp_matcher.cpp:183-262), exact: the free
+    features of KF2 against those of KF1 with the 2-NN ratio test, the
+    epipole-proximity rejection (dist^2 < 100) and the covariance-scaled
+    epipolar-line gate d^2 < 3.84 / min(cov2_inv).  Returns match21 (N2,)
+    index into KF1 features or -1."""
+    dist = pairwise_dist(desc2, desc1)  # rows = KF2 queries
+    mask = (valid2 & free2)[:, None] & (valid1 & free1)[None, :]
+    best, idx1, second = masked_best2(dist, mask)
+    row_ok = (valid2 & free2) & (best < BIG) & (best < ratio * second)
+    de = uv2 - epipole2_uv[None, :]
+    row_ok &= (de * de).sum(-1) >= 100.0
+    # epipolar line of the matched KF1 feature in image 2
+    lines = torch.cat([uv1, torch.ones_like(uv1[:, :1])], -1) @ F12
+    line = lines[idx1.long()]
+    num = line[:, 0] * uv2[:, 0] + line[:, 1] * uv2[:, 1] + line[:, 2]
+    den = line[:, 0] ** 2 + line[:, 1] ** 2
+    dsqr = num * num / den.clamp_min(1e-12)
+    factor = 1.0 / cov2_inv2.amin(-1).clamp_min(1e-12)
+    row_ok &= (den > 0) & (dsqr < 3.84 * factor)
+    match21, _ = resolve_mutual(idx1, best, row_ok, desc1.shape[0])
+    return match21
+
+
+def fuse_candidates(mp_desc, mp_proj_uv, mp_valid, kp_desc, kp_uv, kp_valid,
+                    *, radius: float):
+    """The device part of SPMatcher::Fuse (sp_matcher.cpp:965-1104): per
+    map point the best keypoint within `radius` passing the pyramid-sigma
+    chi^2 gate e2 <= 5.99 and TH_LOW.  Returns (best_idx (P,) or -1,
+    best_dist (P,))."""
+    du = kp_uv[None, :, 0] - mp_proj_uv[:, None, 0]
+    dv = kp_uv[None, :, 1] - mp_proj_uv[:, None, 1]
+    mask = ((du.abs() < radius) & (dv.abs() < radius)
+            & (du * du + dv * dv <= 5.99) & mp_valid[:, None]
+            & kp_valid[None, :])
+    best, idx, _ = masked_best2(pairwise_dist(mp_desc, kp_desc), mask)
+    return torch.where(mp_valid & (best <= TH_LOW), idx, -1), best

@@ -1,0 +1,100 @@
+"""The port's command line: run the offline SLAM pipeline over a dataset.
+
+    python -m sp_orb_slam_tpu_torch.run_vo --dataset synthetic [--device cpu]
+    python -m sp_orb_slam_tpu_torch.run_vo --dataset rendered \
+        --weights weights/sp_rendered.npz [--max-frames N]
+
+Writes traj.txt / kf.txt (TUM format) under --output (default: the
+config's output_path where a config sets one, else out/run_vo/ beside the
+package), prints the tracking report with the Sim3 ATE against the
+dataset's ground truth as one JSON line, and the timer table on stderr.
+Runs on the card unless --device cpu is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def default_output(cfg) -> str:
+    """The config's output_path where it differs from the built-in default,
+    else out/run_vo/ in the repository holding this package: the built-in
+    default is one fixed directory that every copy of the repository (and
+    the JAX package's CLI) would share."""
+    from sp_orb_slam_tpu_torch.config import Config
+
+    if cfg.output_path != Config.output_path:
+        return cfg.output_path
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return os.path.join(root, "out", "run_vo")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="learned VO/SLAM on PyTorch")
+    ap.add_argument("--config", help="YAML config (reference cfg/*.yaml schema)")
+    ap.add_argument("--dataset", default=None,
+                    help="synthetic | rendered (overrides the config)")
+    ap.add_argument("--seq", default=None,
+                    help="rendered: the room's texture seed")
+    ap.add_argument("--weights", default=None,
+                    help="SuperPoint checkpoint (.npz/.pt) for image datasets")
+    ap.add_argument("--output", default=None,
+                    help="trajectory output dir (default: the config's "
+                    "output_path where it sets one, else out/run_vo/)")
+    ap.add_argument("--max-frames", type=int, default=None)
+    ap.add_argument("--synthetic-frames", type=int, default=120)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--verbose", action="store_true")
+    args = ap.parse_args(argv)
+
+    from sp_orb_slam_tpu_torch.config import load_config
+
+    overrides = {k: v for k, v in (("dataset", args.dataset),
+                                   ("seq", args.seq),
+                                   ("verbose", args.verbose or None))
+                 if v is not None}
+    cfg = load_config(args.config, overrides)
+    output = args.output or default_output(cfg)
+
+    params = None
+    weights = args.weights or cfg.model_path
+    if weights:
+        from sp_orb_slam_tpu_torch.models.weights import load_checkpoint
+
+        params = load_checkpoint(weights)
+    elif cfg.dataset != "synthetic":
+        raise SystemExit("image datasets need --weights")
+
+    from sp_orb_slam_tpu_torch.eval.ate import ate_sim3
+    from sp_orb_slam_tpu_torch.io.dataset import (SyntheticDataset,
+                                                  make_dataset)
+    from sp_orb_slam_tpu_torch.slam.system import System
+
+    if cfg.dataset == "synthetic":
+        dataset = SyntheticDataset(cfg, n_frames=args.synthetic_frames)
+    else:
+        dataset = make_dataset(cfg)
+    system = System(cfg, params=params, device=args.device)
+    system.spin(dataset, max_frames=args.max_frames)
+
+    os.makedirs(output, exist_ok=True)
+    system.save_trajectory_tum(os.path.join(output, "traj.txt"))
+    system.save_keyframe_trajectory_tum(os.path.join(output, "kf.txt"))
+    report = system.report()
+    ts_gt, poses_gt = dataset.gt_trajectory()
+    ts_est, poses_est = system.trajectory()
+    if len(ts_est) >= 3:
+        res = ate_sim3(ts_est, poses_est[:, :3, 3], ts_gt, poses_gt[:, :3, 3])
+        report["ate_rmse"] = res.rmse
+        report["ate_mean"] = res.mean
+    print(json.dumps(report, default=float))
+    print(system.timer.table(), file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,624 @@
+"""Per-frame tracking and mapping stages, one packed readback each.
+
+The port of the JAX package's slam/kernels.py.  Each stage is a plain
+PyTorch function of device tensors (the `*_body` functions) that the
+host-facing `TrackingKernels` runs with ONE packed host-to-device upload of
+its numpy arguments and ONE packed device-to-host copy of its results (a
+flat float32 vector unpacked by `Layout`), so the host code reads results
+exactly as it does in the JAX package:
+
+- dust_track: PoseOptimizationDust -> 2x2 occ-grid patch association ->
+  PoseOptimizationDustPost                (tracker_dust.cpp:22-228)
+- motion_track: SearchByProjection vs the last frame at radius th, retried
+  at 2 th when thin, + 4x10 PoseOptimization (tracker.cpp:480-559)
+- ref_track / reloc_track: brute-force mutual NN vs a keyframe + pose
+  optimization (multi-start for relocalization) (tracker.cpp:372-417)
+- local_map_track: frustum + SearchByProjection vs the local map +
+  PoseOptimization                        (tracker.cpp:561-832)
+- fused_track: dust_track flowing into local_map_track on the device
+- init_two_view: SearchForInitialization + the two-view bootstrap
+                                          (mono_tracker.cpp:38-115)
+- triangulate_pair_batch: per-neighbour match + DLT + gates
+                                          (local_mapper.cpp:558-791)
+- fuse: projection fuse candidates        (sp_matcher.cpp:965-1104)
+
+The loops are Python loops with `torch.where` masks and the JAX package's
+`lax.cond`s run both branches and select, so no stage reads a value back
+before its single copy (the init stage reads the match count once: the
+RANSAC draws depend on it).  Index arrays are int64 on the device and every
+gather index is clamped into range (JAX clamps silently; CUDA asserts).
+Conflicts resolve by minimum distance (ops/matching.py).  On the card the
+init matcher is the `match` kernel (ops/cuda_match.py, batch 1); the
+fleet's batched variants wait for the multi-stream slice.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, List, Tuple, Union
+
+import numpy as np
+import torch
+
+from sp_orb_slam_tpu_torch.config import Config
+from sp_orb_slam_tpu_torch.geometry import twoview
+from sp_orb_slam_tpu_torch.geometry.triangulation import (depth_and_tau,
+                                                          triangulate,
+                                                          triangulation_gates)
+from sp_orb_slam_tpu_torch.ops import cuda_match, matching
+from sp_orb_slam_tpu_torch.optim import pose as pose_opt
+from sp_orb_slam_tpu_torch.utils.precision import full_f32
+
+
+# ---------------------------------------------------------------------------
+# packed transfers
+# ---------------------------------------------------------------------------
+
+
+class Layout:
+    """Named flat-float32 packing: one transfer per stage."""
+
+    def __init__(self, specs: List[Tuple[str, tuple, type]]):
+        self.specs = specs
+        self.sizes = [int(np.prod(s)) if s else 1 for _, s, _ in specs]
+
+    def pack(self, **tensors) -> torch.Tensor:
+        """Device side: the named tensors as one flat float32 tensor."""
+        return torch.cat([tensors[name].reshape(-1).to(torch.float32)
+                          for name, _, _ in self.specs])
+
+    def unpack(self, flat: np.ndarray) -> dict:
+        """Host side: the flat vector back into named numpy fields (bools
+        from > 0.5, ints by rounding; every index is < 2^24)."""
+        out = {}
+        off = 0
+        for (name, shape, dtype), size in zip(self.specs, self.sizes):
+            chunk = flat[off:off + size]
+            chunk = chunk.reshape(shape) if shape else chunk[0]
+            if dtype is bool:
+                chunk = chunk > 0.5
+            elif dtype is int:
+                chunk = np.rint(chunk).astype(np.int64)
+            out[name] = chunk
+            off += size
+        return out
+
+
+def upload(args, device: torch.device) -> list:
+    """Move a stage's arguments to `device`: every numpy (or Python scalar)
+    argument travels in ONE packed float32 copy and is sliced back on the
+    device (bools as bool, integers as int64, exact below 2^24); tensors
+    pass through (moved if they live elsewhere)."""
+    out = list(args)
+    host = [(i, np.asarray(a)) for i, a in enumerate(args)
+            if not isinstance(a, torch.Tensor)]
+    if host:
+        flat = np.concatenate([a.reshape(-1).astype(np.float32, copy=False)
+                               for _, a in host])
+        buf = torch.from_numpy(flat).to(device)
+        off = 0
+        for i, a in host:
+            t = buf[off:off + a.size].view(a.shape)
+            off += a.size
+            if a.dtype == np.bool_:
+                t = t > 0.5
+            elif np.issubdtype(a.dtype, np.integer):
+                t = t.round().long()
+            out[i] = t
+    return [a.to(device) if a.device != device else a for a in out]
+
+
+def _scatter_flags(n: int, idx: torch.Tensor) -> torch.Tensor:
+    """(n,) bool: True at every idx >= 0 (idx values in [-1, n))."""
+    flags = torch.zeros(n + 1, dtype=torch.bool, device=idx.device)
+    flags[torch.where(idx >= 0, idx, n).long()] = True
+    return flags[:n]
+
+
+def _project(Tcw, pts, K_intr):
+    """Camera-frame points, pixel projections (sign-preserving depth guard)
+    and depths of world points under Tcw."""
+    pc = pts @ Tcw[:3, :3].T + Tcw[:3, 3]
+    z = pc[:, 2]
+    zs = torch.where(z.abs() < 1e-9, 1e-9, z)
+    proj = torch.stack([K_intr[0] * pc[:, 0] / zs + K_intr[2],
+                        K_intr[1] * pc[:, 1] / zs + K_intr[3]], -1)
+    return pc, proj, z, zs
+
+
+# ---------------------------------------------------------------------------
+# stage bodies (pure functions of device tensors)
+# ---------------------------------------------------------------------------
+
+
+def _dust_association(proj_uv, in_view, mp_desc_track, occ_grid, kp_desc,
+                      kp_valid):
+    """Patch-wise association on the 1/8 occupancy grid (tracker_dust.cpp:
+    105-172): 2x2 cell window around floor(proj), best descriptor distance
+    < 0.75 against the tracking descriptor."""
+    hc, wc = occ_grid.shape
+    K = kp_desc.shape[0]
+    u0 = proj_uv[:, 0].floor().clamp(-1.0, float(wc)).long().clamp(0, wc - 2)
+    v0 = proj_uv[:, 1].floor().clamp(-1.0, float(hc)).long().clamp(0, hc - 2)
+    best_dist = torch.full(u0.shape, 0.75, device=u0.device)
+    best_idx = torch.full(u0.shape, -1, dtype=torch.long, device=u0.device)
+    for du in (0, 1):
+        for dv in (0, 1):
+            idx = occ_grid[v0 + dv, u0 + du].long()
+            idx_safe = idx.clamp(0, K - 1)
+            cand_ok = (idx >= 0) & in_view & kp_valid[idx_safe]
+            dot = (mp_desc_track * kp_desc[idx_safe]).sum(-1)
+            d = torch.sqrt((2.0 - 2.0 * dot).clamp_min(0.0))
+            better = cand_ok & (d < best_dist)
+            best_dist = torch.where(better, d, best_dist)
+            best_idx = torch.where(better, idx, best_idx)
+    # each keypoint claimed once: min-distance wins
+    return matching.resolve_mutual(best_idx.clamp_min(0), best_dist,
+                                   best_idx >= 0, K)
+
+
+def dust_track_body(Tcw_pred, mp_pos, mp_desc_track, mp_valid, dust,
+                    occ_grid, kp_desc, kp_uv, kp_cov2_inv, kp_valid, K_intr,
+                    *, dust_iters, huber_delta, chi2_inlier):
+    res = pose_opt.pose_optimization_dust(
+        Tcw_pred, mp_pos, mp_valid, dust, K_intr, iters=dust_iters,
+        huber_delta=huber_delta, chi2_inlier=chi2_inlier)
+    mp2kp, kp2mp = _dust_association(res.proj_uv, res.inlier, mp_desc_track,
+                                     occ_grid, kp_desc, kp_valid)
+    # post reprojection optimization over the associated pairs
+    kp_has = kp2mp >= 0
+    post = pose_opt.pose_optimization_post(
+        res.Tcw, mp_pos[kp2mp.clamp_min(0).long()], kp_uv, kp_cov2_inv,
+        kp_has, K_intr)
+    return dict(
+        Tcw=post.Tcw, Tcw_coarse=res.Tcw, kp2mp=kp2mp,
+        post_inlier=post.inlier, n_coarse=res.n_inlier,
+        n_match=(mp2kp >= 0).sum(), n_opt=post.n_inlier,
+        mp_in_view=res.inlier, mp_matched=mp2kp >= 0)
+
+
+def motion_track_body(Tcw_pred, mp_pos, mp_desc_track, mp_valid, kp_desc,
+                      kp_uv, kp_cov2_inv, kp_valid, K_intr, bounds, *,
+                      radius, n_retry_th):
+    _, proj, _, zs = _project(Tcw_pred, mp_pos, K_intr)
+    depth_ok = 1.0 / zs > 0
+
+    def run(rad):
+        return matching.search_by_projection_frame(
+            mp_desc_track, proj, depth_ok, mp_valid, kp_desc, kp_uv,
+            kp_valid, torch.ones_like(kp_valid), radius=rad, bounds=bounds)
+
+    m1, inv1 = run(radius)
+    _, inv2 = run(2.0 * radius)
+    thin = (m1 >= 0).sum() < n_retry_th  # widen the window when thin
+    kp2mp = torch.where(thin, inv2, inv1)
+    kp_has = kp2mp >= 0
+    res = pose_opt.pose_optimization(
+        Tcw_pred, mp_pos[kp2mp.clamp_min(0).long()], kp_uv, kp_cov2_inv,
+        kp_has, K_intr)
+    return dict(Tcw=res.Tcw, kp2mp=kp2mp, inlier=res.inlier,
+                n_match=kp_has.sum(), n_inlier=res.n_inlier)
+
+
+def reloc_track_body(T0s, mp_pos, mp_desc, mp_valid, kp_desc, kp_uv,
+                     kp_cov2_inv, kp_valid, K_intr, bounds, *,
+                     radius2: float = 10.0):
+    """Relocalization attempt against one candidate keyframe: brute-force
+    mutual NN + pose optimization from a fan of S starts (one batched LM,
+    the start with the most inliers kept) + the windowed second chance with
+    the fitted pose, kept when it does not lose inliers."""
+    kp2mp = matching.search_by_brute_force(mp_desc, mp_valid, kp_desc,
+                                           kp_valid)
+    kp_has = kp2mp >= 0
+    Xw = mp_pos[kp2mp.clamp_min(0).long()]
+    res = pose_opt.pose_optimization(T0s, Xw, kp_uv, kp_cov2_inv, kp_has,
+                                     K_intr)
+    best = torch.argmax(res.n_inlier)
+    Tfit = res.Tcw[best]
+    n_fit = res.n_inlier[best]
+
+    # windowed second chance with the fitted pose
+    _, proj, _, zs = _project(Tfit, mp_pos, K_intr)
+    mp_found = _scatter_flags(mp_pos.shape[0], kp2mp)
+    _, kp2mp2 = matching.search_by_projection_frame(
+        mp_desc, proj, 1.0 / zs > 0, mp_valid & ~mp_found, kp_desc, kp_uv,
+        kp_valid, ~kp_has, radius=radius2, bounds=bounds)
+    kp2mp_u = torch.where(kp_has, kp2mp, kp2mp2)
+    kp_has_u = kp2mp_u >= 0
+    res2 = pose_opt.pose_optimization(
+        Tfit, mp_pos[kp2mp_u.clamp_min(0).long()], kp_uv, kp_cov2_inv,
+        kp_has_u, K_intr)
+    keep2 = res2.n_inlier >= n_fit
+    return dict(
+        Tcw=torch.where(keep2, res2.Tcw, Tfit),
+        kp2mp=torch.where(keep2, kp2mp_u, kp2mp),
+        inlier=torch.where(keep2, res2.inlier, res.inlier[best]),
+        n_match=torch.where(keep2, kp_has_u, kp_has).sum(),
+        n_inlier=torch.maximum(res2.n_inlier, n_fit))
+
+
+def ref_track_body(Tcw0, mp_pos, mp_desc, mp_valid, kp_desc, kp_uv,
+                   kp_cov2_inv, kp_valid, K_intr):
+    kp2mp = matching.search_by_brute_force(mp_desc, mp_valid, kp_desc,
+                                           kp_valid)
+    kp_has = kp2mp >= 0
+    res = pose_opt.pose_optimization(
+        Tcw0, mp_pos[kp2mp.clamp_min(0).long()], kp_uv, kp_cov2_inv, kp_has,
+        K_intr)
+    return dict(Tcw=res.Tcw, kp2mp=kp2mp, inlier=res.inlier,
+                n_match=kp_has.sum(), n_inlier=res.n_inlier)
+
+
+def local_map_track_body(Tcw0, mp_pos, mp_desc_track, mp_normal, mp_valid,
+                         mp_skip, kp2mp0, kp_desc, kp_uv, kp_cov2_inv,
+                         kp_valid, K_intr, bounds, *, view_cos_th, window_th,
+                         match_adaptive, c2_thresh):
+    """SearchLocalPoints + PoseOptimization (tracker.cpp:561-832).  mp_skip:
+    points already bound to the frame; kp2mp0: bindings carried in from the
+    coarse stage (local-map indices, -1 free).  No scale-invariance
+    distance gate: the reference comments it out of isInFrustum
+    (frame.cpp:354-358)."""
+    R, t = Tcw0[:3, :3], Tcw0[:3, 3]
+    _, proj, z, _ = _project(Tcw0, mp_pos, K_intr)
+    po = mp_pos - (-R.T @ t)
+    dist = torch.linalg.vector_norm(po, dim=-1)
+    view_cos = (po * mp_normal).sum(-1) / dist.clamp_min(1e-9)
+    in_frustum = ((z > 0)
+                  & (proj[:, 0] >= bounds[0]) & (proj[:, 0] <= bounds[1])
+                  & (proj[:, 1] >= bounds[2]) & (proj[:, 1] <= bounds[3])
+                  & (view_cos >= view_cos_th))
+    to_match = mp_valid & ~mp_skip & in_frustum
+    _, kp2mp_new = matching.search_by_projection_points(
+        mp_desc_track, proj, view_cos, to_match, kp_desc, kp_uv, kp_valid,
+        kp_valid & (kp2mp0 < 0), th=window_th,
+        match_adaptive=match_adaptive, c2_thresh=c2_thresh)
+    kp2mp = torch.where(kp2mp0 >= 0, kp2mp0, kp2mp_new.long())
+    kp_has = kp2mp >= 0
+    res = pose_opt.pose_optimization(
+        Tcw0, mp_pos[kp2mp.clamp_min(0)], kp_uv, kp_cov2_inv, kp_has, K_intr)
+    return dict(Tcw=res.Tcw, kp2mp=kp2mp, inlier=res.inlier,
+                n_extra=(kp2mp_new >= 0).sum(), n_inlier=res.n_inlier,
+                mp_visible=to_match)
+
+
+def fused_track_body(Tcw_pred, dust_pos, dust_desc_track, dust_valid, dust,
+                     occ_grid, loc_pos, loc_desc_track, loc_normal, loc_valid,
+                     dust2local, kp_desc, kp_uv, kp_cov2_inv, kp_valid,
+                     K_intr, bounds, *, dust_iters, huber_delta, chi2_inlier,
+                     view_cos_th, window_th, match_adaptive, c2_thresh):
+    """The OK-path chain in one stage: dust_track_body flowing into
+    local_map_track_body, with the coarse -> fine binding handoff on the
+    device.  The host speculates the local-map candidate set from the
+    previous frame's bindings and passes `dust2local` (dust-candidate index
+    -> local-map index or -1); kp2mp0 and the skip mask are derived here
+    exactly as prepare_local_map would."""
+    d = dust_track_body(Tcw_pred, dust_pos, dust_desc_track, dust_valid,
+                        dust, occ_grid, kp_desc, kp_uv, kp_cov2_inv,
+                        kp_valid, K_intr, dust_iters=dust_iters,
+                        huber_delta=huber_delta, chi2_inlier=chi2_inlier)
+    kp2mp_dust = d["kp2mp"]
+    kp2mp0 = torch.where(kp2mp_dust >= 0,
+                         dust2local[kp2mp_dust.clamp_min(0).long()], -1)
+    skip = _scatter_flags(loc_pos.shape[0], kp2mp0)
+    f = local_map_track_body(
+        d["Tcw"], loc_pos, loc_desc_track, loc_normal, loc_valid, skip,
+        kp2mp0, kp_desc, kp_uv, kp_cov2_inv, kp_valid, K_intr, bounds,
+        view_cos_th=view_cos_th, window_th=window_th,
+        match_adaptive=match_adaptive, c2_thresh=c2_thresh)
+    out = {"d_" + k: v for k, v in d.items()}
+    out.update({"l_" + k: v for k, v in f.items()})
+    out["skip"] = skip
+    out["kp2mp0"] = kp2mp0
+    return out
+
+
+Draws = Union[torch.Tensor, np.ndarray, Callable[[int], object]]
+
+
+def init_body(kp1_desc, kp1_uv, kp1_valid, prev_uv, kp2_desc, kp2_uv,
+              kp2_valid, K_intr, draws: Draws, *, window, ratio):
+    """SearchForInitialization (window 100, ratio 0.9) + Initializer::
+    Initialize.  `draws`: the RANSAC sample positions (iters, 8), or a
+    callable taking the match count and returning them (read back once)."""
+    m12, n, _ = cuda_match.match_init_batch(
+        kp1_desc[None], kp1_valid[None], prev_uv[None], kp2_desc[None],
+        kp2_uv[None], kp2_valid[None], window=window, ratio=ratio)
+    m12, n = m12[0], n[0]
+    if callable(draws):
+        draws = draws(int(n))
+    draws = torch.as_tensor(np.asarray(draws) if not isinstance(
+        draws, torch.Tensor) else draws, device=kp1_uv.device)
+    has = m12 >= 0
+    res = twoview.initialize(kp1_uv, kp2_uv[m12.clamp_min(0).long()], has,
+                             K_intr, draws)
+    return dict(ok=res.ok, used_h=res.used_h, R21=res.R21, t21=res.t21,
+                points=res.points, triangulated=res.triangulated & has,
+                match12=m12, n_matches=n)
+
+
+def _kmat(K_intr):
+    Km = torch.eye(3, dtype=K_intr.dtype, device=K_intr.device)
+    Km[0, 0], Km[1, 1], Km[0, 2], Km[1, 2] = (K_intr[0], K_intr[1],
+                                              K_intr[2], K_intr[3])
+    return Km
+
+
+def triangulate_body(Tcw1, Tcw2, kp1_uv, kp1_desc, kp1_cov2_inv, kp1_free,
+                     kp2_uv, kp2_desc, kp2_cov2_inv, kp2_free, K_intr, *,
+                     nn_ratio, method: int = 1, seed_px_noise: float = 1.0):
+    """One neighbour-KF triangulation pass (local_mapper.cpp:615-791):
+    SearchForTri (method 1: exact 2-NN + epipole + epipolar gates) -> DLT
+    in normalized coordinates -> gates, plus each view's depth and its
+    triangulation uncertainty for the depth filter.  KF1 = current KF,
+    KF2 = neighbour."""
+    if method != 1:
+        raise NotImplementedError(
+            "matching_method 2 (SearchForTriByEpi) is not ported")
+    fx, fy, cx, cy = K_intr[0], K_intr[1], K_intr[2], K_intr[3]
+    R1, t1 = Tcw1[:3, :3], Tcw1[:3, 3]
+    R2, t2 = Tcw2[:3, :3], Tcw2[:3, 3]
+    # F12 = K^-T [t12]x R12 K^-1 (ComputeF12)
+    R12 = R1 @ R2.T
+    t12 = -R12 @ t2 + t1
+    zero = torch.zeros_like(t12[0])
+    t12x = torch.stack([torch.stack([zero, -t12[2], t12[1]]),
+                        torch.stack([t12[2], zero, -t12[0]]),
+                        torch.stack([-t12[1], t12[0], zero])])
+    Kinv, _ = torch.linalg.inv_ex(_kmat(K_intr))
+    F12 = Kinv.T @ t12x @ R12 @ Kinv
+    # epipole of camera 1 in image 2
+    C1_in_2 = R2 @ (-R1.T @ t1) + t2
+    e2 = torch.stack([fx * C1_in_2[0] / C1_in_2[2] + cx,
+                      fy * C1_in_2[1] / C1_in_2[2] + cy])
+    match21 = matching.search_for_triangulation(
+        kp1_desc, kp1_free, kp1_free, kp2_desc, kp2_uv, kp2_free, kp2_free,
+        e2, F12, kp1_uv, kp2_cov2_inv, ratio=nn_ratio)
+    has = match21 >= 0
+    idx1 = match21.clamp_min(0).long()
+    uv1 = kp1_uv[idx1]
+
+    def normalize(uv):
+        return torch.stack([(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fy], -1)
+
+    X = triangulate(Tcw1[:3, :], Tcw2[:3, :], normalize(uv1),
+                    normalize(kp2_uv))
+    gates = triangulation_gates(X, Tcw1, Tcw2, K_intr, uv1, kp2_uv,
+                                kp1_cov2_inv[idx1], kp2_cov2_inv, has)
+    O1 = -R1.T @ t1
+    O2 = -R2.T @ t2
+    px_err_angle = 2.0 * torch.atan(seed_px_noise / (2.0 * fx))
+    z1, tau1 = depth_and_tau(X, O1, O2, px_err_angle)
+    z2, tau2 = depth_and_tau(X, O2, O1, px_err_angle)
+    return dict(match21=match21, points=X, good=gates.good,
+                n_good=gates.good.sum(), z1=z1, tau1=tau1, z2=z2, tau2=tau2)
+
+
+def fuse_body(Tcw, mp_pos, mp_desc, mp_normal, mp_dmin, mp_dmax, mp_valid,
+              kp_uv, kp_desc, kp_valid, K_intr, bounds, *, radius):
+    """The device part of SPMatcher::Fuse into one keyframe."""
+    R, t = Tcw[:3, :3], Tcw[:3, 3]
+    _, proj, z, _ = _project(Tcw, mp_pos, K_intr)
+    po = mp_pos - (-R.T @ t)
+    dist3 = torch.linalg.vector_norm(po, dim=-1)
+    view_ok = (po * mp_normal).sum(-1) >= 0.5 * dist3
+    ok = (mp_valid & (z > 0)
+          & (proj[:, 0] >= bounds[0]) & (proj[:, 0] <= bounds[1])
+          & (proj[:, 1] >= bounds[2]) & (proj[:, 1] <= bounds[3])
+          & (dist3 >= 0.8 * mp_dmin) & (dist3 <= 1.2 * mp_dmax) & view_ok)
+    idx, best = matching.fuse_candidates(mp_desc, proj, ok, kp_desc, kp_uv,
+                                         kp_valid, radius=radius)
+    return dict(best_idx=idx, best_dist=best)
+
+
+# ---------------------------------------------------------------------------
+# host-facing stages
+# ---------------------------------------------------------------------------
+
+
+def _stage(fn):
+    """Run a stage without autograd and with full-float32 matmuls."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with torch.inference_mode(), full_f32():
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+class TrackingKernels:
+    """Config-bound stages on `device` (the card unless the caller passes
+    "cpu"), each with one packed upload and one packed readback."""
+
+    def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass device='cpu' "
+                               "to run the tracking stages on the CPU")
+        if cfg.tracking.coarse_method != "dust":
+            raise NotImplementedError(
+                "coarse_method 'heat' (PoseOptimizationHeat) is not ported")
+        self.cfg = cfg
+        self.device = dev
+        K = cfg.runtime.max_keypoints
+        P = cfg.runtime.dust_points_cap
+        L = cfg.runtime.local_points_cap
+        cam = cfg.camera
+        self.K_np = np.array([cam.fx, cam.fy, cam.cx, cam.cy], np.float32)
+        self.K_intr = torch.from_numpy(self.K_np).to(dev)
+        self.bounds = torch.tensor(
+            [0.0, cam.width - 1.0, 0.0, cam.height - 1.0], device=dev)
+
+        self.dust_layout = Layout([
+            ("Tcw", (4, 4), float), ("Tcw_coarse", (4, 4), float),
+            ("kp2mp", (K,), int), ("post_inlier", (K,), bool),
+            ("n_coarse", (), int), ("n_match", (), int), ("n_opt", (), int),
+            ("mp_in_view", (P,), bool), ("mp_matched", (P,), bool)])
+        self.track_layout = Layout([
+            ("Tcw", (4, 4), float), ("kp2mp", (K,), int),
+            ("inlier", (K,), bool), ("n_match", (), int),
+            ("n_inlier", (), int)])
+        self.local_layout = Layout([
+            ("Tcw", (4, 4), float), ("kp2mp", (K,), int),
+            ("inlier", (K,), bool), ("n_extra", (), int),
+            ("n_inlier", (), int), ("mp_visible", (L,), bool)])
+        self.fused_layout = Layout(
+            [("d_" + n, s, t) for n, s, t in self.dust_layout.specs]
+            + [("l_" + n, s, t) for n, s, t in self.local_layout.specs]
+            + [("skip", (L,), bool), ("kp2mp0", (K,), int)])
+        self.init_layout = Layout([
+            ("ok", (), bool), ("used_h", (), bool), ("R21", (3, 3), float),
+            ("t21", (3,), float), ("points", (K, 3), float),
+            ("triangulated", (K,), bool), ("match12", (K,), int),
+            ("n_matches", (), int)])
+        self.tri_layout = Layout([
+            ("match21", (K,), int), ("points", (K, 3), float),
+            ("good", (K,), bool), ("n_good", (), int),
+            ("z1", (K,), float), ("tau1", (K,), float),
+            ("z2", (K,), float), ("tau2", (K,), float)])
+        self.fuse_layout = Layout([
+            ("best_idx", (L,), int), ("best_dist", (L,), float)])
+        hc, wc = cfg.grid_h, cfg.grid_w
+        self.feat_layout = Layout([
+            ("uv", (K, 2), float), ("score", (K,), float),
+            ("response", (K,), float), ("valid", (K,), bool),
+            ("cov2_inv", (K, 2), float), ("occ_grid", (hc, wc), int),
+            ("count", (), int)])
+
+        d = cfg.tracking.dust
+        m = cfg.tracking.map
+        self._dust_kw = dict(dust_iters=d.iters, huber_delta=d.huber_delta,
+                             chi2_inlier=d.chi2_inlier)
+        self._local_kw = dict(view_cos_th=m.th_view_cos,
+                              match_adaptive=m.match_adaptive,
+                              c2_thresh=d.c2_thresh)
+
+    # ---- transfers ---------------------------------------------------------
+
+    def _up(self, args) -> list:
+        return upload(args, self.device)
+
+    @staticmethod
+    def _read(layout: Layout, flat: torch.Tensor) -> dict:
+        return layout.unpack(flat.cpu().numpy())
+
+    @_stage
+    def fetch_features_host(self, feats, b: int = 0) -> dict:
+        """One packed copy of a frame's host mirrors."""
+        out = self._read(self.feat_layout, self.feat_layout.pack(
+            uv=feats.uv[b], score=feats.score[b], response=feats.response[b],
+            valid=feats.valid[b], cov2_inv=feats.cov2_inv[b],
+            occ_grid=feats.occ_grid[b], count=feats.count[b]))
+        for k in ("uv", "score", "response", "cov2_inv"):
+            out[k] = out[k].astype(np.float32)
+        out["occ_grid"] = out["occ_grid"].astype(np.int32)
+        return out
+
+    @_stage
+    def gather_rows(self, bank, rows, valid) -> torch.Tensor:
+        """On-device descriptor row gather: (cap, 256) device bank + (P,)
+        rows / valid -> (P, 256) device tensor (invalid slots exact
+        zeros)."""
+        bank, rows, valid = self._up((bank, rows, valid))
+        return torch.where(valid[:, None], bank[rows], 0.0)
+
+    # ---- tracking ----------------------------------------------------------
+
+    @_stage
+    def dust_track(self, *args):
+        a = self._up(args)
+        out = dust_track_body(*a, self.K_intr, **self._dust_kw)
+        return self._read(self.dust_layout, self.dust_layout.pack(**out))
+
+    @_stage
+    def fused_track(self, *args, wide: bool = False):
+        """One-stage OK path; returns (dust_out, local_out) in the
+        dust_track / local_map_track field layouts, plus the device-side
+        glue masks under local_out["skip"] / ["kp2mp0"]."""
+        m = self.cfg.tracking.map
+        a = self._up(args)
+        out = fused_track_body(
+            *a, self.K_intr, self.bounds, **self._dust_kw, **self._local_kw,
+            window_th=float(m.th_window_retry if wide else m.th_window_size))
+        flat = self._read(self.fused_layout, self.fused_layout.pack(**out))
+        dust_out = {n: flat["d_" + n] for n, _, _ in self.dust_layout.specs}
+        local_out = {n: flat["l_" + n]
+                     for n, _, _ in self.local_layout.specs}
+        local_out["skip"] = flat["skip"]
+        local_out["kp2mp0"] = flat["kp2mp0"]
+        return dust_out, local_out
+
+    @_stage
+    def motion_track(self, *args):
+        mo = self.cfg.tracking.motion
+        out = motion_track_body(
+            *self._up(args), self.K_intr, self.bounds,
+            radius=float(mo.th_window_size), n_retry_th=mo.th_nmatch_proj)
+        return self._read(self.track_layout, self.track_layout.pack(**out))
+
+    @_stage
+    def ref_track(self, *args):
+        out = ref_track_body(*self._up(args), self.K_intr)
+        return self._read(self.track_layout, self.track_layout.pack(**out))
+
+    @_stage
+    def reloc_track(self, *args):
+        out = reloc_track_body(
+            *self._up(args), self.K_intr, self.bounds,
+            radius2=float(self.cfg.tracking.map.th_window_reloc))
+        return self._read(self.track_layout, self.track_layout.pack(**out))
+
+    def _local(self, args, window_th):
+        out = local_map_track_body(*self._up(args), self.K_intr, self.bounds,
+                                   window_th=window_th, **self._local_kw)
+        return self._read(self.local_layout, self.local_layout.pack(**out))
+
+    @_stage
+    def local_map_track(self, *args):
+        return self._local(args, float(self.cfg.tracking.map.th_window_size))
+
+    @_stage
+    def local_map_track_wide(self, *args):
+        """Starvation retry at the widened window (th_window_retry)."""
+        return self._local(args, float(self.cfg.tracking.map.th_window_retry))
+
+    @_stage
+    def init_two_view(self, kp1_desc, kp1_uv, kp1_valid, prev_uv, kp2_desc,
+                      kp2_uv, kp2_valid, draws: Draws):
+        a = self._up((kp1_desc, kp1_uv, kp1_valid, prev_uv, kp2_desc,
+                      kp2_uv, kp2_valid))
+        out = init_body(*a, self.K_intr, draws, window=100, ratio=0.9)
+        return self._read(self.init_layout, self.init_layout.pack(**out))
+
+    # ---- mapping -----------------------------------------------------------
+
+    def _tri_flat(self, args):
+        mp = self.cfg.mapping
+        out = triangulate_body(
+            *self._up(args), self.K_intr, nn_ratio=0.7,
+            method=mp.matching_method,
+            seed_px_noise=mp.depth_filter.seed_px_noise)
+        return self.tri_layout.pack(**out)
+
+    def _fuse_flat(self, args):
+        out = fuse_body(*self._up(args), self.K_intr, self.bounds, radius=3.0)
+        return self.fuse_layout.pack(**out)
+
+    @_stage
+    def triangulate_pair_batch(self, rows):
+        """Every neighbour row's triangulation, one packed readback."""
+        return self._rows(self._tri_flat, self.tri_layout, rows)
+
+    @_stage
+    def fuse(self, *args):
+        return self._read(self.fuse_layout, self._fuse_flat(args))
+
+    @_stage
+    def fuse_batch(self, rows):
+        """Every target-KF row's fuse candidates, one packed readback."""
+        return self._rows(self._fuse_flat, self.fuse_layout, rows)
+
+    @staticmethod
+    def _rows(flat_fn, layout, rows):
+        flat = torch.cat([flat_fn(r) for r in rows]).cpu().numpy()
+        return [layout.unpack(f) for f in flat.reshape(len(rows), -1)]

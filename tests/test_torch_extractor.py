@@ -99,7 +99,7 @@ def test_extract_rejects_bad_options(jparams, images):
     model = SuperPoint(params_from_jax(jparams))
     x = torch.from_numpy(images)
     for kw in (dict(cov_radius=9, border=8), dict(nms_method="pallas"),
-               dict(cov_method="dense"), dict(desc_method="dense"),
+               dict(cov_method="dense"), dict(desc_method="stencil"),
                dict(conv_packing="s2d")):
         with pytest.raises(ValueError):
             extract(model, x, num_features=NF, max_keypoints=K, **kw)

@@ -9,8 +9,10 @@ only torch and the port, so it runs on a machine without JAX:
 import pytest
 import torch
 
-from sp_orb_slam_tpu_torch.ops import (_build, cuda_cov, cuda_match,
-                                       cuda_nms, cuda_pair1t)
+from sp_orb_slam_tpu_torch.models.superpoint import (
+    sample_descriptors, sample_descriptors_dense)
+from sp_orb_slam_tpu_torch.ops import (_build, cuda_cov, cuda_desc,
+                                       cuda_match, cuda_nms, cuda_pair1t)
 from sp_orb_slam_tpu_torch.ops.covariance import keypoint_covariance
 from sp_orb_slam_tpu_torch.ops.matching import init_match
 from sp_orb_slam_tpu_torch.ops.nms import greedy_grid_nms
@@ -101,3 +103,37 @@ def test_match_kernel(cuda, gen, M, N):
     assert (g12 != w12).sum() <= 2
     assert int(gn.sum()) > 0
     assert (g21 >= 0).sum() == gn.sum()
+
+
+def _coarse(gen, cuda, B, hc, wc):
+    c = torch.randn((B, hc, wc, 256), generator=gen, device=cuda)
+    return c / c.norm(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("B,H,W,K", [(2, 64, 96, 16), (32, 480, 752, 896)])
+def test_desc_sparse_kernel(cuda, gen, B, H, W, K):
+    coarse = _coarse(gen, cuda, B, H // 8, W // 8)
+    uv = torch.stack([torch.rand((B, K), generator=gen, device=cuda) * (W - 1),
+                      torch.rand((B, K), generator=gen, device=cuda)
+                      * (H - 1)], -1).contiguous()
+    n = _build.LAUNCHES["desc_sparse"]
+    got = cuda_desc.sample_descriptors_sparse(coarse, uv, (H, W))
+    want = sample_descriptors(coarse, uv, (H, W))
+    assert _build.LAUNCHES["desc_sparse"] == n + 1
+    assert (got - want).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("B,H,W", [(2, 64, 96), (32, 480, 752)])
+def test_desc_dense_kernel(cuda, gen, B, H, W):
+    hc, wc = H // 8, W // 8
+    coarse = _coarse(gen, cuda, B, hc, wc)
+    u = torch.arange(wc, device=cuda) * 8 + torch.randint(
+        0, 8, (B, hc, wc), generator=gen, device=cuda)
+    v = torch.arange(hc, device=cuda)[:, None] * 8 + torch.randint(
+        0, 8, (B, hc, wc), generator=gen, device=cuda)
+    cand = torch.stack([u, v], -1).to(torch.int32).contiguous()
+    n = _build.LAUNCHES["desc_dense"]
+    got = cuda_desc.sample_descriptors_dense_batch(coarse, cand, (H, W))
+    want = sample_descriptors_dense(coarse, cand, (H, W))
+    assert _build.LAUNCHES["desc_dense"] == n + 1
+    assert (got - want).abs().max() <= 1e-5

@@ -11,8 +11,8 @@ import torch
 
 from sp_orb_slam_tpu_torch.config import Config
 from sp_orb_slam_tpu_torch.extractor import make_extractor
-from sp_orb_slam_tpu_torch.ops import _build, cuda_cov, cuda_match, cuda_nms
-from sp_orb_slam_tpu_torch.ops import cuda_pair1t
+from sp_orb_slam_tpu_torch.ops import (_build, cuda_cov, cuda_desc,
+                                       cuda_match, cuda_nms, cuda_pair1t)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -28,6 +28,19 @@ import sp_orb_slam_tpu_torch.ops.cuda_cov, sp_orb_slam_tpu_torch.ops.cuda_match
 import sp_orb_slam_tpu_torch.ops.cuda_nms, sp_orb_slam_tpu_torch.ops.cuda_pair1t
 import sp_orb_slam_tpu_torch.ops.matching, sp_orb_slam_tpu_torch.ops.nms
 import sp_orb_slam_tpu_torch.utils.precision
+import sp_orb_slam_tpu_torch.ops.cuda_desc
+import sp_orb_slam_tpu_torch.geometry.se3, sp_orb_slam_tpu_torch.geometry.camera
+import sp_orb_slam_tpu_torch.geometry.triangulation
+import sp_orb_slam_tpu_torch.geometry.twoview
+import sp_orb_slam_tpu_torch.optim.lm, sp_orb_slam_tpu_torch.optim.pose
+import sp_orb_slam_tpu_torch.optim.ba
+import sp_orb_slam_tpu_torch.slam.frame, sp_orb_slam_tpu_torch.slam.map
+import sp_orb_slam_tpu_torch.slam.depth_filter
+import sp_orb_slam_tpu_torch.slam.kernels, sp_orb_slam_tpu_torch.slam.tracking
+import sp_orb_slam_tpu_torch.slam.local_mapping
+import sp_orb_slam_tpu_torch.slam.system
+import sp_orb_slam_tpu_torch.eval.ate, sp_orb_slam_tpu_torch.utils.timing
+import sp_orb_slam_tpu_torch.run_vo
 
 def banned(name):
     # the port's own name starts with "sp_orb_slam_tpu": match the JAX
@@ -46,7 +59,8 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300,
                          check=True).stdout.splitlines()
     assert out[0] == "[]", out[0]
-    assert "sp_orb_slam_tpu_torch.extractor" in out[1]
+    for mod in ("extractor", "slam.system", "run_vo", "ops.cuda_desc"):
+        assert f"sp_orb_slam_tpu_torch.{mod}" in out[1], mod
 
 
 def test_make_extractor_raises_without_card():
@@ -56,6 +70,39 @@ def test_make_extractor_raises_without_card():
         make_extractor(Config(), {}, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_extractor(Config(), {})  # the default device is the card
+
+
+@pytest.mark.parametrize("entry", ["system", "tracking_kernels", "run_vo"])
+def test_slam_entry_points_default_to_the_card(entry):
+    """System, TrackingKernels and the run_vo command line run on the card
+    unless told otherwise, and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the no-card path")
+    from sp_orb_slam_tpu_torch import run_vo
+    from sp_orb_slam_tpu_torch.slam.kernels import TrackingKernels
+    from sp_orb_slam_tpu_torch.slam.system import System
+
+    call = {"system": lambda: System(Config()),
+            "tracking_kernels": lambda: TrackingKernels(Config()),
+            "run_vo": lambda: run_vo.main(["--dataset", "synthetic",
+                                           "--synthetic-frames", "2"])}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call[entry]()
+
+
+def test_run_vo_writes_inside_the_repository_by_default():
+    """run_vo's default output is out/run_vo/ beside the package, not the
+    config's fixed /tmp default; an output_path a config sets is kept."""
+    import dataclasses
+    import os
+
+    from sp_orb_slam_tpu_torch import run_vo
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(run_vo.__file__)))
+    assert run_vo.default_output(Config()) == os.path.join(root, "out",
+                                                           "run_vo")
+    cfg = dataclasses.replace(Config(), output_path="elsewhere/traj")
+    assert run_vo.default_output(cfg) == "elsewhere/traj"
 
 
 def _meta(*shape, dtype=torch.float32):
@@ -75,7 +122,11 @@ def _meta(*shape, dtype=torch.float32):
     lambda: cuda_match.match_init_batch(
         _meta(2, 16, 256), _meta(2, 16, dtype=torch.bool), _meta(2, 16, 2),
         _meta(2, 16, 256), _meta(2, 16, 2), _meta(2, 16, dtype=torch.bool)),
-], ids=["pair1t", "nms", "cov", "match"])
+    lambda: cuda_desc.sample_descriptors_sparse(
+        _meta(2, 4, 6, 256), _meta(2, 16, 2), (32, 48)),
+    lambda: cuda_desc.sample_descriptors_dense_batch(
+        _meta(2, 4, 6, 256), _meta(2, 4, 6, 2, dtype=torch.int32), (32, 48)),
+], ids=["pair1t", "nms", "cov", "match", "desc_sparse", "desc_dense"])
 def test_wrappers_never_fall_back(call):
     before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
