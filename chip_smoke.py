@@ -10,10 +10,12 @@ JAX.  Phases, each of which raises on failure:
    power limit; build every kernel from `sp_orb_slam_tpu_torch/csrc/` (one
    `nvcc` per source, all at once) and print `-Xptxas -v`'s register and
    shared-memory report;
-2. kernels: each of the six kernels against its plain PyTorch version on
-   the card at the main path's shapes (B=32, 752x480, K=896) with seeded
-   inputs, then CUDA-event times of the kernel, its plain version and,
-   where one PyTorch call computes the same function, that call;
+2. kernels: each of the seven kernels against its plain PyTorch version
+   on the card at the main path's shapes (B=32, 752x480, K=896) with
+   seeded inputs, then CUDA-event times of the kernel, its plain version
+   and, where one PyTorch call computes the same function, that call (the
+   two first-conv-pair designs, pair1t and pair1, also against each
+   other);
 3. frontend paths: frames 0 and 2 of the rendered room through
    `make_extractor(..., device="cuda")` in bfloat16 with the trained
    weights (weights/sp_rendered.npz), then `match_init_batch`; keypoint,
@@ -30,10 +32,22 @@ JAX.  Phases, each of which raises on failure:
    K=896, float32): gates on LOST frames, the tracked share and the Sim3
    ATE; ms per frame of `System.process` and of each `Timer` span over an
    unprofiled spin of the first 215 frames; the device's idle share over
-   the last 5 frames, spun under torch.profiler.
+   the last 5 frames, spun under torch.profiler;
+7. the fleet: `StreamFleet(cfg, 8, params, device="cuda")` in bfloat16 with
+   conv_packing="pair1" over 8 held-out rendered rooms (texture seeds
+   4-11, 100 frames each, the last stream ending after 90): per-stream
+   gates on LOST frames, the tracked share and the Sim3 ATE; launch gates
+   (pair1, nms, cov and desc_sparse once per tick, pair1t never, match at
+   least once per stream); ms per tick and the spans over the unprofiled
+   ticks, the idle share over the last 5 ticks profiled apart; then the
+   localization leg: stream 0's map saved, a new 8-stream fleet loads it in
+   localization mode and runs 40 ticks of seed 4's frames, gated on
+   relocalization, the share of ticks with a pose and the frozen map.
 
 Every path is driven with the launch counters zeroed just before it and
-read just after, and fails if a kernel of that path never launched.
+read just after, and fails if a kernel of that path never launched.  The
+rendered frames of phases 6 and 7 are made before phase 2, in one process
+per CPU core.
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
 result, without a card or without the repository around it.
@@ -41,8 +55,10 @@ result, without a card or without the repository around it.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -77,6 +93,32 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def render_frames(seed, n_total, idx):
+    """Frames `idx` of the held-out rendered room `seed` (a trajectory of
+    `n_total` frames, sensor noise seed 0) at the default camera: the
+    worker of `render_all`."""
+    from sp_orb_slam_tpu_torch.config import Config
+    from sp_orb_slam_tpu_torch.io.render import RenderedDataset
+
+    ds = RenderedDataset(Config(), n_frames=n_total, seed=seed, noise_seed=0)
+    return [ds.frame(i) for i in idx]
+
+
+def render_all(jobs):
+    """{seed: frames} for jobs {seed: (n_total, n_frames)}, rendered in one
+    process per CPU core (the pool stops when it returns)."""
+    tasks = [(seed, n_total, list(range(lo, min(lo + 25, n))))
+             for seed, (n_total, n) in jobs.items() for lo in range(0, n, 25)]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=os.cpu_count() or 1, mp_context=ctx) as pool:
+        parts = list(pool.map(render_frames, *zip(*tasks)))
+    out = {seed: [] for seed in jobs}
+    for (seed, _, _), part in zip(tasks, parts):
+        out[seed] += part
+    return out
+
+
 def bound_ms(nbytes, flops, peak):
     t_bytes = nbytes / H100_BYTES * 1e3
     t_ops = flops / peak * 1e3
@@ -92,15 +134,36 @@ def unit_rows(x):
 # ---------------------------------------------------------------- phase 2
 
 
-def check_pair1t(state, gen, dev):
+def pair_inputs(state, gen, dev):
+    """Seeded images and the trained first-pair weights at B=32, 752x480,
+    with the cuDNN bf16 pair (channels-last) on them: the yardstick."""
     import torch
     import torch.nn.functional as F
-
-    from sp_orb_slam_tpu_torch.ops import cuda_pair1t
 
     images = torch.rand((B, H, W), generator=gen, device=dev)
     w = [state[k].to(dev) for k in ("conv1a.weight", "conv1a.bias",
                                     "conv1b.weight", "conv1b.bias")]
+    wb = [x.to(torch.bfloat16) for x in w]
+    xb = images.to(torch.bfloat16)[:, None].contiguous(
+        memory_format=torch.channels_last)
+    wa_cl = wb[0].contiguous(memory_format=torch.channels_last)
+    wb_cl = wb[2].contiguous(memory_format=torch.channels_last)
+
+    def library():
+        y = F.relu(F.conv2d(xb, wa_cl, wb[1], padding=1))
+        return F.max_pool2d(F.relu(F.conv2d(y, wb_cl, wb[3], padding=1)), 2)
+
+    flops = 2.0 * B * H * W * 64 * (9 + 64 * 9)
+    nbytes = B * H * W * 4 + B * (H // 2) * (W // 2) * 64 * 2
+    return images, w, library, bound_ms(nbytes, flops, H100_BF16)
+
+
+def check_pair1t(state, gen, dev):
+    import torch
+
+    from sp_orb_slam_tpu_torch.ops import cuda_pair1t
+
+    images, w, library, (bms, by) = pair_inputs(state, gen, dev)
     got = cuda_pair1t.fused_pair1t(images, *w)
     want = cuda_pair1t.fused_pair1t_plain(images, *w)
     torch.cuda.synchronize()
@@ -114,20 +177,6 @@ def check_pair1t(state, gen, dev):
         f"{same:.6f}, outside rtol=1e-2/atol=1e-3: {bad}")
     if got.shape != (B, H // 2, W // 2, 64) or bad:
         raise AssertionError("pair1t disagrees with its plain version")
-
-    wb = [x.to(torch.bfloat16) for x in w]
-    xb = images.to(torch.bfloat16)[:, None].contiguous(
-        memory_format=torch.channels_last)
-    wa_cl = wb[0].contiguous(memory_format=torch.channels_last)
-    wb_cl = wb[2].contiguous(memory_format=torch.channels_last)
-
-    def library():  # cuDNN, bf16, channels-last: the yardstick only
-        y = F.relu(F.conv2d(xb, wa_cl, wb[1], padding=1))
-        return F.max_pool2d(F.relu(F.conv2d(y, wb_cl, wb[3], padding=1)), 2)
-
-    flops = 2.0 * B * H * W * 64 * (9 + 64 * 9)
-    nbytes = B * H * W * 4 + B * (H // 2) * (W // 2) * 64 * 2
-    bms, by = bound_ms(nbytes, flops, H100_BF16)
     return dict(
         name="pair1t", route="cuda",
         source="sp_orb_slam_tpu_torch/csrc/pair1t.cu",
@@ -135,6 +184,48 @@ def check_pair1t(state, gen, dev):
         max_abs_err=float(err.max()),
         ms=cuda_ms(lambda: cuda_pair1t.fused_pair1t(images, *w)),
         plain_ms=cuda_ms(lambda: cuda_pair1t.fused_pair1t_plain(images, *w),
+                         iters=5),
+        bound_ms=bms, bound_by=by, library_ms=cuda_ms(library))
+
+
+def check_pair1(state, gen, dev):
+    """The row-pair kernel against its plain version (the stock bf16 pair)
+    with the tolerances of tests/test_pallas_pair1.py: bf16 operands and
+    f32 sums in another order (conv1a on the tensor cores), so a y1 value
+    may round one bf16 ulp apart and move an output by up to two ulps:
+    atol 0.03, rtol 0.02, more than 95 % bit-identical.  Times it beside
+    its plain version, the cuDNN pair and the pair1t kernel."""
+    import torch
+
+    from sp_orb_slam_tpu_torch.ops import cuda_pair1, cuda_pair1t
+
+    images, w, library, (bms, by) = pair_inputs(state, gen, dev)
+    got = cuda_pair1.fused_pair1(images, *w)
+    want = cuda_pair1.fused_pair1_plain(images, *w)
+    other = cuda_pair1t.fused_pair1t(images, *w)
+    torch.cuda.synchronize()
+    g, t, o = got.float(), want.float(), other.float()
+    err = (g - t).abs()
+    bad = int((err > 0.02 * t.abs() + 0.03).sum())
+    same = float((g == t).float().mean())
+    same_t = float((g == o).float().mean())
+    blocks = cuda_pair1.blocks_per_sm(dev)
+    log(f"pair1: max_abs_err {float(err.max()):.3e}, bit-identical "
+        f"{same:.6f} (vs the pair1t kernel {same_t:.6f}), outside "
+        f"rtol=0.02/atol=0.03: {bad}; {blocks} blocks an SM")
+    if (got.shape != (B, H // 2, W // 2, 64) or bad or same <= 0.95
+            or blocks < 2):
+        raise AssertionError("pair1 disagrees with its plain version")
+    ms = cuda_ms(lambda: cuda_pair1.fused_pair1(images, *w))
+    pair1t_ms = cuda_ms(lambda: cuda_pair1t.fused_pair1t(images, *w))
+    log(f"pair1: {ms:.4f} ms, the pair1t kernel {pair1t_ms:.4f} ms on the "
+        f"same inputs")
+    return dict(
+        name="pair1", route="cuda",
+        source="sp_orb_slam_tpu_torch/csrc/pair1.cu",
+        replaces="sp_orb_slam_tpu/ops/pallas_pair1.py:250",
+        max_abs_err=float(err.max()), ms=ms,
+        plain_ms=cuda_ms(lambda: cuda_pair1.fused_pair1_plain(images, *w),
                          iters=5),
         bound_ms=bms, bound_by=by, library_ms=cuda_ms(library))
 
@@ -678,7 +769,20 @@ PROFILE_FRAMES = 5    # the spin's last frames, profiled apart from the rest
 SLAM_ROWS = 12        # kernel and CPU-op rows printed
 
 
-def slam_phase(state, dev, smi):
+def keep_samples(timer):
+    """Wrap `timer.add` to keep every sample in ms; returns the dict."""
+    spans = {}
+    add = timer.add
+
+    def add_and_keep(tag, dt):
+        spans.setdefault(tag, []).append(dt * 1e3)
+        add(tag, dt)
+
+    timer.add = add_and_keep
+    return spans
+
+
+def slam_phase(state, dev, smi, frames):
     """The offline SLAM path on the card over the held-out rendered room
     (texture seed 5), then the gates.  One System spins the first
     SLAM_FRAMES - PROFILE_FRAMES frames with no profiler and no synchronize
@@ -699,17 +803,8 @@ def slam_phase(state, dev, smi):
 
     cfg = Config()
     ds = RenderedDataset(cfg, n_frames=SLAM_FRAMES, seed=5, noise_seed=0)
-    # render every frame before the timed run (data is set-up)
-    frames = [ds.frame(i) for i in range(SLAM_FRAMES)]
     sys_ = System(cfg, params=state, device=dev)
-    spans = {}
-    add = sys_.timer.add
-
-    def add_and_keep(tag, dt):
-        spans.setdefault(tag, []).append(dt * 1e3)
-        add(tag, dt)
-
-    sys_.timer.add = add_and_keep
+    spans = keep_samples(sys_.timer)
     process = sys_.process
     per_frame = []
 
@@ -795,7 +890,206 @@ def slam_phase(state, dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+
+FLEET_SEEDS = tuple(range(4, 12))  # held-out rooms (training used 0-3)
+FLEET_FRAMES = 100    # ticks; each stream runs the first frames of the
+#                       SLAM_FRAMES-frame trajectory (phase 6's)
+FLEET_SHORT = 90      # the last stream ends here: idle rows for 10 ticks
+FLEET_PROFILE = 5     # the last ticks, profiled apart from the rest
+FLEET_TRACKED = 0.75  # tracked share gate of each stream
+LOC_TICKS = 40        # localization leg: stream i runs frames 20+2i ..
+FLEET_KERNELS = ("pair1", "nms", "cov", "desc_sparse", "match")
+FLEET_SPANS = ("fleet/features", "fleet/dust", "fleet/coarse",
+               "fleet/local", "fleet/retry", "fleet/fine")
+
+
+def fleet_config():
+    """The fleet's operating point: the default configuration with the
+    bfloat16 frontend through the row-pair first-conv-pair kernel."""
+    from sp_orb_slam_tpu_torch.config import Config
+
+    cfg = Config()
+    return dataclasses.replace(cfg, extractor=dataclasses.replace(
+        cfg.extractor, dtype="bfloat16", conv_packing="pair1"))
+
+
+def span_stats(v):
+    import numpy as np
+
+    v = np.asarray(v, float) if len(v) else np.zeros(1)
+    return (f"median {np.median(v):.2f} p90 {np.percentile(v, 90):.2f} "
+            f"mean {v.mean():.2f} max {v.max():.2f} ms (n={len(v)})")
+
+
+def fleet_phase(state, dev, smi, frames, gt, cfg=None):
+    """The fleet on the card: 8 streams, one per held-out room, through
+    StreamFleet.tick with one batched bf16 extraction a tick, then the
+    gates; the localization leg follows (`localization_leg`).  Returns
+    the launch counts of the ticks."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sp_orb_slam_tpu_torch.eval.ate import ate_sim3
+    from sp_orb_slam_tpu_torch.slam.fleet import StreamFleet
+
+    cfg = cfg or fleet_config()
+    n = len(FLEET_SEEDS)
+    lengths = [FLEET_FRAMES] * (n - 1) + [FLEET_SHORT]
+    fleet = StreamFleet(cfg, n, params=state, device=dev)
+    t0 = time.perf_counter()
+    fleet.warmup()
+    torch.cuda.synchronize()
+    log(f"fleet: warmup {time.perf_counter() - t0:.2f} s")
+    spans = keep_samples(fleet.timer)
+
+    def raws(k):
+        return [frames[s][k] if k < lengths[i] else None
+                for i, s in enumerate(FLEET_SEEDS)]
+
+    n_timed = FLEET_FRAMES - FLEET_PROFILE
+    per_tick = []
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(n_timed):
+        t1 = time.perf_counter()
+        fleet.tick(raws(k))
+        per_tick.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed_spans = {k: list(v) for k, v in spans.items()}
+    per_stream = {tag: sum(s.timer.tags[tag].total for s in fleet.systems
+                           if tag in s.timer.tags)
+                  for tag in ("tracking/total", "mapping")}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for k in range(n_timed, FLEET_FRAMES):
+            fleet.tick(raws(k))
+        torch.cuda.synchronize()
+        win_ms = (time.perf_counter() - t1) * 1e3
+    launches = read_launches("fleet", FLEET_KERNELS)
+
+    kern = []
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            kern.append((getattr(ev, "self_device_time_total", getattr(
+                ev, "self_cuda_time_total", 0)) / 1e3 / FLEET_PROFILE,
+                ev.count / FLEET_PROFILE, ev.key))
+    kern.sort(reverse=True)
+    busy = sum(k[0] for k in kern) * FLEET_PROFILE
+    stream_frames = sum(min(n_timed, m) for m in lengths)
+    pt = np.asarray(per_tick)
+    lines = [f"fleet: {n} streams (rooms {FLEET_SEEDS[0]}-{FLEET_SEEDS[-1]})"
+             f" x {FLEET_FRAMES} ticks (the last stream {FLEET_SHORT}) at "
+             f"{cfg.camera.width}x{cfg.camera.height}, K="
+             f"{cfg.runtime.max_keypoints}, {cfg.extractor.dtype}, "
+             f"conv_packing={cfg.extractor.conv_packing} | {smi}",
+             f"fleet: unprofiled ticks 0-{n_timed - 1}: wall {wall:.3f} s, "
+             f"ms/tick median {np.median(pt):.2f} p90 "
+             f"{np.percentile(pt, 90):.2f} mean {pt.mean():.2f} max "
+             f"{pt.max():.2f}, {stream_frames / wall:.3f} stream-frames/s | "
+             f"{smi}"]
+    for tag in FLEET_SPANS:
+        lines.append(f"fleet span {tag}: "
+                     f"{span_stats(timed_spans.get(tag, []))} | {smi}")
+    for tag, total in per_stream.items():
+        lines.append(f"fleet per-stream {tag}: {total * 1e3 / n_timed:.2f} "
+                     f"ms/tick summed over the streams | {smi}")
+    lines.append(f"fleet batched stream-frames: dust {fleet.n_batched_dust} "
+                 f"local {fleet.n_batched_local} motion "
+                 f"{fleet.n_batched_motion} retry {fleet.n_batched_retry}")
+    lines.append(f"fleet profile: ticks {n_timed}-{FLEET_FRAMES - 1} | wall "
+                 f"{win_ms / FLEET_PROFILE:.2f} ms/tick (profiler on) | "
+                 f"device busy {busy / FLEET_PROFILE:.2f} ms/tick | idle "
+                 f"share {1 - busy / win_ms:.3f} | "
+                 f"{sum(k[1] for k in kern):.0f} device events/tick | {smi}")
+    lines += [f"{ms:9.3f} {c:7.0f}  {k[:100]}" for ms, c, k in
+              kern[:SLAM_ROWS]]
+    ok = True
+    for i, (s, seed) in enumerate(zip(fleet.systems, FLEET_SEEDS)):
+        rep = s.report()
+        ts, poses = s.trajectory()
+        tg, pg = gt[seed]
+        ate = ate_sim3(ts, poses[:, :3, 3], tg, pg[:, :3, 3])
+        good = (rep["n_lost"] == 0 and ate.rmse < 0.2
+                and rep["n_frames"] >= FLEET_TRACKED * lengths[i])
+        ok &= good
+        lines.append(f"fleet stream {i} (room {seed}, {lengths[i]} frames): "
+                     f"tracked {rep['n_frames']} LOST {rep['n_lost']} KFs "
+                     f"{rep['n_keyframes']} points {rep['n_points']} ATE "
+                     f"rmse {ate.rmse:.4f} mean {ate.mean:.4f} "
+                     f"{'met' if good else 'MISSED'}")
+    log("\n".join(lines))
+    if not ok:
+        raise AssertionError("fleet gates failed (0 LOST, >= 75 % tracked, "
+                             "ATE rmse < 0.2 on every stream)")
+    want = {"pair1": FLEET_FRAMES, "nms": FLEET_FRAMES, "cov": FLEET_FRAMES,
+            "desc_sparse": FLEET_FRAMES, "pair1t": 0}
+    wrong = {k: launches[k] for k, v in want.items() if launches[k] != v}
+    if wrong or launches["match"] < n:
+        raise AssertionError(f"fleet launches {launches}: want {want} and "
+                             f"match >= {n}")
+    localization_leg(fleet, state, dev, smi, frames, cfg)
+    return launches
+
+
+def localization_leg(fleet, state, dev, smi, frames, cfg):
+    """Stream 0's map saved; a new fleet loads it in localization mode and
+    runs LOC_TICKS ticks of room FLEET_SEEDS[0], stream i from frame
+    20 + 2 i: every stream is LOST right after the load (armed for cold
+    relocalization) and ends OK in localization mode with a pose on >= 2/3
+    of its ticks and the map frozen (tests/test_map_serialize.py:82-112)."""
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.slam import tracking as tr
+    from sp_orb_slam_tpu_torch.slam.fleet import StreamFleet
+
+    out_dir = os.path.join(HERE, "out", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "fleet_map.npz")
+    src = fleet.systems[0]
+    src.save_map(path)
+    n_kf, n_pt = src.map.n_keyframes(), src.map.n_points()
+    n = len(FLEET_SEEDS)
+    loc = StreamFleet(cfg, n, params=state, device=dev)
+    loc.load_map(path)
+    if any(s.tracker.state != tr.LOST for s in loc.systems):
+        raise AssertionError("localization: a stream is not LOST after the "
+                             "load")
+    room = frames[FLEET_SEEDS[0]]
+    with_pose = [0] * n
+    per_tick = []
+    torch.cuda.synchronize()
+    for k in range(LOC_TICKS):
+        t1 = time.perf_counter()
+        res = loc.tick([room[20 + 2 * i + k] for i in range(n)])
+        per_tick.append((time.perf_counter() - t1) * 1e3)
+        for i, p in enumerate(res):
+            with_pose[i] += p is not None
+    torch.cuda.synchronize()
+    pt = np.asarray(per_tick)
+    states = [s.tracker.state for s in loc.systems]
+    frozen = [(s.map.n_keyframes(), s.map.n_points()) for s in loc.systems]
+    log(f"localization: map of stream 0 ({n_kf} KFs, {n_pt} points), {n} "
+        f"streams x {LOC_TICKS} ticks: ms/tick median {np.median(pt):.2f} "
+        f"p90 {np.percentile(pt, 90):.2f} mean {pt.mean():.2f} max "
+        f"{pt.max():.2f}; ticks with a pose {with_pose}; OK "
+        f"{[st == tr.OK for st in states]}; KFs/points {frozen} | {smi}")
+    if not all(st == tr.OK and s.tracker.only_tracking and w * 3 >= 2 *
+               LOC_TICKS and fz == (n_kf, n_pt) for st, s, w, fz in
+               zip(states, loc.systems, with_pose, frozen)):
+        raise AssertionError("localization gates failed (OK in "
+                             "localization mode, a pose on >= 2/3 of the "
+                             "ticks, the map frozen)")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -806,6 +1100,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    from sp_orb_slam_tpu_torch.config import Config
+    from sp_orb_slam_tpu_torch.io.render import RenderedDataset
     from sp_orb_slam_tpu_torch.models.weights import load_checkpoint
     from sp_orb_slam_tpu_torch.ops import _build
 
@@ -827,9 +1123,22 @@ def main() -> int:
                                          or "Compiling" in line):
                 log(f"  {kname}: {line.strip()}")
 
+    # data is set-up: render phase 6's room and phase 7's rooms up front
+    t0 = time.perf_counter()
+    # phase 6's room 5 is one of phase 7's: render its longer run once
+    rooms = render_all({**{s: (SLAM_FRAMES, FLEET_FRAMES)
+                           for s in FLEET_SEEDS},
+                        5: (SLAM_FRAMES, SLAM_FRAMES)})
+    gt = {s: RenderedDataset(Config(), n_frames=SLAM_FRAMES, seed=s,
+                             noise_seed=0).gt_trajectory()
+          for s in FLEET_SEEDS}
+    log(f"rendered {sum(map(len, rooms.values()))} frames in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     state = load_checkpoint(os.path.join(HERE, "weights", "sp_rendered.npz"))
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = [check_pair1t(state, gen, dev), check_nms(gen, dev),
+    rows = [check_pair1t(state, gen, dev), check_pair1(state, gen, dev),
+            check_nms(gen, dev),
             check_cov(gen, dev), check_match(gen, dev),
             check_desc_sparse(gen, dev), check_desc_dense(gen, dev)]
     front, dense_route = main_path(state, dev)
@@ -837,12 +1146,15 @@ def main() -> int:
     stats, carry = step_fps(step)
     log(f"step: {json.dumps(stats)} | {smi}")
     log("\n".join(profile_step(step, carry)))
-    slam = slam_phase(state, dev, smi)
+    slam = slam_phase(state, dev, smi, rooms[5])
+    fleet = fleet_phase(state, dev, smi, rooms, gt)
     # each kernel's launches on the path that runs it: the SLAM path for
     # its kernels, the bf16 frontend for pair1t, desc_method="pallas" for
-    # desc_dense
+    # desc_dense, the bf16 fleet for pair1
     for r in rows:
-        if r["name"] in SLAM_KERNELS:
+        if r["name"] == "pair1":
+            r["path"], r["launches"] = "fleet_bf16", fleet["pair1"]
+        elif r["name"] in SLAM_KERNELS:
             r["path"], r["launches"] = "slam", slam[r["name"]]
         elif r["name"] == "desc_dense":
             r["path"], r["launches"] = "frontend_pallas", dense_route[
@@ -852,6 +1164,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -272,7 +272,9 @@ class ExtractorConfig:
     conv_packing: str = "auto"  # "auto" = the fused first-conv-pair kernel
     #                             ("pair1t", ops/cuda_pair1t.py) on the
     #                             bfloat16 path on a CUDA device, "none"
-    #                             (cuDNN / CPU convs) elsewhere
+    #                             (cuDNN / CPU convs) elsewhere; "pair1"
+    #                             (ops/cuda_pair1.py, the row-pair design
+    #                             of the same function) on request
     dtype: str = "float32"     # compute dtype of the conv net ("bfloat16" for speed)
 
 

@@ -53,9 +53,10 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
 
     Method choices: `nms_method` "cuda" (kernel) or "xla" (plain fixed
     point), `cov_method` "cuda" or "windowed" (plain fill), `conv_packing`
-    "pair1t" (fused first-pair kernel, bfloat16) or "none"; "auto" picks the
-    kernels on a CUDA device (pair1t when bfloat16, H % 8 == 0 and
-    W % 2 == 0) and the plain versions on the CPU.  `desc_method`:
+    "pair1t" or "pair1" (the two fused first-pair kernels, bfloat16,
+    H % 8 == 0 and W % 2 == 0) or "none"; "auto" picks the kernels on a
+    CUDA device (pair1t when bfloat16, H % 8 == 0 and W % 2 == 0) and the
+    plain versions on the CPU.  `desc_method`:
     "gather" (plain 4-corner sampling at each keypoint), "pallas_sparse"
     (the sparse sampling kernel), "dense" (plain 9-tap stencil at every
     cell's candidate, then each keypoint's own cell row), "pallas" (the

@@ -12,7 +12,8 @@ to [0, 1] (`heat_inv` peaks at keypoints).
 Public layouts are the JAX package's: (B, hc, wc) cell maps, NHWC
 `coarse_desc` (B, hc, wc, 256), `cand_uv` (B, hc, wc, 2).  Inside, the conv
 stack runs NCHW tensors in channels-last memory, so the NHWC output of the
-fused first pair (ops/cuda_pair1t.py) feeds cuDNN without a copy.
+fused first pair (ops/cuda_pair1t.py or ops/cuda_pair1.py) feeds cuDNN
+without a copy.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sp_orb_slam_tpu_torch.ops import cuda_pair1t
+from sp_orb_slam_tpu_torch.ops import cuda_pair1, cuda_pair1t
 from sp_orb_slam_tpu_torch.utils.precision import full_f32
 
 # encoder/head channel plan (sp_extractor.cpp:16-21)
@@ -102,8 +103,9 @@ class SuperPoint(nn.Module):
         The conv stack runs in `compute_dtype` (bfloat16 for speed; float32
         runs without TF32, the counterpart of the JAX package's
         `Precision.HIGHEST`); heads and probabilities finish in float32.
-        `conv_packing="pair1t"` runs the first conv pair as one fused
-        kernel (bfloat16 only)."""
+        `conv_packing` "pair1t" or "pair1" runs the first conv pair as one
+        fused kernel (bfloat16 only; two designs of the same function,
+        ops/cuda_pair1t.py and ops/cuda_pair1.py)."""
         with full_f32():
             return self._forward(images, conf_thresh, cell, conv_packing,
                                  with_heat, with_heat_inv, compute_dtype)
@@ -112,12 +114,13 @@ class SuperPoint(nn.Module):
                  with_heat_inv, compute_dtype) -> FrontendOut:
         B, H, W = images.shape
         hc, wc = H // cell, W // cell
-        if conv_packing == "pair1t":
+        if conv_packing in ("pair1t", "pair1"):
             if compute_dtype != torch.bfloat16:
-                raise ValueError("pair1t is the bfloat16 path")
-            x = cuda_pair1t.fused_pair1t(
-                images, self.conv1a.weight, self.conv1a.bias,
-                self.conv1b.weight, self.conv1b.bias).permute(0, 3, 1, 2)
+                raise ValueError(f"{conv_packing} is the bfloat16 path")
+            fused = (cuda_pair1t.fused_pair1t if conv_packing == "pair1t"
+                     else cuda_pair1.fused_pair1)
+            x = fused(images, self.conv1a.weight, self.conv1a.bias,
+                      self.conv1b.weight, self.conv1b.bias).permute(0, 3, 1, 2)
             pairs = (("conv2a", "conv2b"), ("conv3a", "conv3b"))
         elif conv_packing == "none":
             x = images[:, None].to(compute_dtype).contiguous(

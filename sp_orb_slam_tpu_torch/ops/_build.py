@@ -25,7 +25,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-KERNELS = ("pair1t", "nms", "cov", "match", "desc_sparse", "desc_dense")
+KERNELS = ("pair1t", "pair1", "nms", "cov", "match", "desc_sparse",
+           "desc_dense")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,6 +3,8 @@
     python -m sp_orb_slam_tpu_torch.run_vo --dataset synthetic [--device cpu]
     python -m sp_orb_slam_tpu_torch.run_vo --dataset rendered \
         --weights weights/sp_rendered.npz [--max-frames N]
+    python -m sp_orb_slam_tpu_torch.run_vo ... --save-map map.npz
+    python -m sp_orb_slam_tpu_torch.run_vo ... --load-map map.npz --localization
 
 Writes traj.txt / kf.txt (TUM format) under --output (default: the
 config's output_path where a config sets one, else out/run_vo/ beside the
@@ -49,6 +51,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--verbose", action="store_true")
+    ap.add_argument("--save-map", default=None, metavar="PATH",
+                    help="persist the built map (slam/serialize.py) after "
+                         "the run")
+    ap.add_argument("--load-map", default=None, metavar="PATH",
+                    help="start from a saved map (cold-start "
+                         "relocalization instead of two-view init)")
+    ap.add_argument("--localization", action="store_true",
+                    help="tracking-only mode (freeze the map; typically "
+                         "with --load-map)")
     args = ap.parse_args(argv)
 
     from sp_orb_slam_tpu_torch.config import load_config
@@ -79,7 +90,13 @@ def main(argv=None) -> int:
     else:
         dataset = make_dataset(cfg)
     system = System(cfg, params=params, device=args.device)
+    if args.load_map:
+        system.load_map(args.load_map)
+    if args.localization:
+        system.activate_localization_mode()
     system.spin(dataset, max_frames=args.max_frames)
+    if args.save_map:
+        system.save_map(args.save_map)
 
     os.makedirs(output, exist_ok=True)
     system.save_trajectory_tum(os.path.join(output, "traj.txt"))

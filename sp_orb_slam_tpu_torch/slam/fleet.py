@@ -1,0 +1,429 @@
+"""Multi-stream serving: N SLAM systems, ONE batched frontend.
+
+The port of the JAX package's slam/fleet.py.  The reference is one camera,
+one System, one GPU; its only batching axis is time.  A deployment serving
+N cameras on one card runs N independent tracking pipelines against one
+batched extraction instead of N copies of a batch-1 frontend:
+
+- one extraction per tick covers every live stream (B = n_streams; idle
+  streams are padded by repeating row 0, so the batch is the same every
+  tick), and ONE packed device-to-host copy fetches all N feature sets;
+- the per-stream Systems share one TrackingKernels;
+- each tick runs the phased drive: the dust stage of every OK stream as one
+  batched call, the motion fallback of every stream whose dust stage failed
+  as one, the local-map stage as one per window width, and the fine retry
+  rounds as one wide-window call and one multi-start call a round; the
+  batched calls are the stage bodies under torch.func.vmap with one packed
+  upload and one packed readback (slam/kernels.py);
+- in bank mode the batched stages gather each stream's point descriptors
+  from its pool's device bank inside the batch (kernels.BankRows).
+
+Host-side tracking state machines and the mappers run per stream in turn,
+offline (each mapper spins after its stream's frame).  `load_map` is the
+build-once, localize-many server.  The JAX fleet's multi-chip stream mesh
+is not ported: there is one card.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from sp_orb_slam_tpu_torch.config import Config
+from sp_orb_slam_tpu_torch.io.dataset import RawFrame
+from sp_orb_slam_tpu_torch.slam import tracking as tr
+from sp_orb_slam_tpu_torch.slam.frame import frame_from_features
+from sp_orb_slam_tpu_torch.slam.kernels import (BankRows, PreStacked,
+                                                TrackingKernels)
+from sp_orb_slam_tpu_torch.slam.system import System, build_preprocess
+from sp_orb_slam_tpu_torch.utils.timing import Timer
+
+BANK_STACKS = 4  # stacked-bank compositions kept (one per stage group a tick)
+DESC = 2         # the point-descriptor slot of every batched stage's rows
+
+
+class StreamFleet:
+    """N concurrent monocular streams through one batched frontend."""
+
+    def __init__(self, cfg: Config, n_streams: Optional[int] = None, *,
+                 params, device: str | torch.device = "cuda", mesh=None):
+        """`params`: the frontend's state dict (None for injected-feature
+        streams); every stage runs on `device`, the card unless the caller
+        passes "cpu" (without a card this raises)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharding the fleet over a device mesh is not ported: the "
+                "port batches streams on one card")
+        if cfg.online:
+            raise NotImplementedError("online (threaded mapping) is not "
+                                      "ported")
+        dev = torch.device(device)
+        self.cfg = cfg
+        self.device = dev
+        self.n = n_streams if n_streams is not None else cfg.runtime.streams
+        self.kernels = TrackingKernels(cfg, device=dev)
+        self.systems = [System(cfg, kernels=self.kernels, device=dev)
+                        for _ in range(self.n)]
+        self._extract = None
+        if params is not None:
+            from sp_orb_slam_tpu_torch.extractor import make_extractor
+
+            self._extract = make_extractor(cfg, params, device=dev)
+        self._preprocess = build_preprocess(cfg, dev)
+        self.n_batched_dust = 0    # stream-frames served by the batched stages
+        self.n_batched_local = 0
+        self.n_batched_motion = 0  # dust-fail fallbacks served batched
+        self.n_batched_retry = 0   # fine retry requests served batched
+        # bank mode (kernels.BankRows): the preps hand back gather inputs
+        # and the batched stages gather inside the batch
+        for s in self.systems:
+            s.tracker.fleet_bank_mode = True
+        # stacked banks keyed by the rows' (bank, version) composition
+        self._bank_stacks: dict = {}
+        self._tick_feats = None         # this tick's batched extraction
+        self._tick_slot: dict = {}      # stream index -> extraction row
+        # the tick's phases: features (extraction + the packed readback),
+        # dust, coarse (phase 1 + the motion batch), local, retry, and fine
+        # (fine consumption + each stream's post-track and mapping spin)
+        self.timer = Timer()
+
+    # ------------------------------------------------------------------ tick
+
+    def tick(self, raws: Sequence[Optional[RawFrame]]
+             ) -> List[Optional[np.ndarray]]:
+        """Advance every live stream by one frame.
+
+        `raws[i] is None` marks stream i idle this tick (ended, or no new
+        camera frame yet).  Returns each stream's tracked pose (Tcw, as
+        System.run) or None for idle / uninitialized / LOST streams.  Image
+        frames across streams are extracted in ONE batched call;
+        injected-feature frames (the synthetic rail) skip extraction."""
+        if len(raws) != self.n:
+            raise ValueError(f"expected {self.n} streams, got {len(raws)}")
+        self._tick_feats = None
+        self._tick_slot = {}
+        out: List[Optional[np.ndarray]] = [None] * self.n
+        img_streams = [i for i, r in enumerate(raws)
+                       if r is not None and r.injected is None]
+        inj_streams = [i for i, r in enumerate(raws)
+                       if r is not None and r.injected is not None]
+
+        span = self.timer.span
+        frames: dict = {}
+        with span("fleet/features"):
+            self._frames(raws, img_streams, inj_streams, frames)
+        with span("fleet/dust"):
+            self._dust_prepass(frames)
+        with span("fleet/coarse"):
+            self._coarse(frames)
+        with span("fleet/local"):
+            self._local_prepass(frames)
+        with span("fleet/retry"):
+            self._fine_retry_rounds(frames)
+        with span("fleet/fine"):
+            for i, frame in frames.items():
+                sysi = self.systems[i]
+                with sysi.timer.span("tracking/total"):
+                    sysi.tracker.track_frame_fine(frame)
+                sysi._post_track(frame, raws[i])
+                out[i] = sysi._last_valid_pose()
+        return out
+
+    def _frames(self, raws, img_streams, inj_streams, frames: dict) -> None:
+        """This tick's frames: one batched extraction and one packed
+        readback for the image streams, the injected features as given."""
+        if img_streams:
+            feats = self._extract_batch([raws[i].image for i in img_streams])
+            self._tick_feats = feats
+            self._tick_slot = {i: b for b, i in enumerate(img_streams)}
+            hosts = self.kernels.fetch_features_host_batch(
+                feats, len(img_streams))
+            for b, i in enumerate(img_streams):
+                sysi = self.systems[i]
+                sysi._apply_pending_toggles()
+                frame = frame_from_features(feats, b, sysi.frame_id,
+                                            raws[i].timestamp, hosts[b])
+                frame.global_desc = raws[i].global_desc
+                frames[i] = frame
+        for i in inj_streams:
+            sysi = self.systems[i]
+            sysi._apply_pending_toggles()
+            frames[i] = sysi._frame_from_injected(raws[i])
+            frames[i].global_desc = raws[i].global_desc
+
+    def _coarse(self, frames: dict) -> None:
+        """Phase 1 of every stream, then the motion fallback of the streams
+        whose dust stage failed as one batched call."""
+        deferred = []
+        for i, frame in frames.items():
+            sysi = self.systems[i]
+            with sysi.timer.span("tracking/total"):
+                margs = sysi.tracker.coarse_phase1(frame)
+            if margs is not None:
+                deferred.append((i, frame, margs))
+        if deferred:
+            self.n_batched_motion += len(deferred)
+            ids = [d[0] for d in deferred]
+            rows = self._prestack([d[2] for d in deferred], ids,
+                                  ((4, "desc"),))
+            outs = self._run_batched(self.kernels.motion_track_batch, rows,
+                                     ids)
+            for (i, frame, _), o in zip(deferred, outs):
+                sysi = self.systems[i]
+                with sysi.timer.span("tracking/total"):
+                    sysi.tracker.coarse_phase2(frame, o)
+
+    def _extract_batch(self, images: List[np.ndarray]):
+        """One extraction over the tick's images, padded to the fleet width
+        by repeating row 0 (the batch is the same every tick)."""
+        Hc, Wc = self.cfg.camera.height, self.cfg.camera.width
+        imgs = np.stack([im.astype(np.float32)[:Hc, :Wc] / 255.0
+                         for im in images])
+        if len(imgs) < self.n:
+            imgs = np.concatenate([imgs, np.repeat(imgs[:1],
+                                                   self.n - len(imgs), 0)])
+        dev = torch.from_numpy(imgs).to(self.device)
+        if self._preprocess is not None:
+            dev = self._preprocess(dev)
+        return self._extract(dev)
+
+    def _fine_retry_rounds(self, frames: dict) -> None:
+        """Drive every stream's fine retry machine (tracking._fine_begin /
+        _fine_step) in lock-step rounds: per round, ONE batched wide-window
+        call covers the "wide" / "vel" / "polish" requests and ONE batched
+        multi-start call the "reloc" requests."""
+        reqs = {}
+        for i, frame in frames.items():
+            t = self.systems[i].tracker
+            r = t.fine_begin_fleet(frame)
+            if r is not None:
+                reqs[i] = (t, frame, r)
+        while reqs:
+            nxt = {}
+            wide_grp = [(i, t, f, r[1]) for i, (t, f, r) in reqs.items()
+                        if r[0] != "reloc"]
+            reloc_grp = [(i, t, f, r[1]) for i, (t, f, r) in reqs.items()
+                         if r[0] == "reloc"]
+            for grp, batch_fn, desc_pos in (
+                    (wide_grp, lambda rows, bank=False: self.kernels
+                     .local_map_track_batch(rows, wide=True, bank=bank),
+                     ((7, "desc"),)),
+                    (reloc_grp, self.kernels.reloc_track_batch,
+                     ((4, "desc"),))):
+                if not grp:
+                    continue
+                self.n_batched_retry += len(grp)
+                ids = [g[0] for g in grp]
+                rows = self._prestack([g[3] for g in grp], ids, desc_pos)
+                outs = self._run_batched(batch_fn, rows, ids)
+                for (i, t, f, _), o in zip(grp, outs):
+                    r2 = t.fine_step_fleet(f, o)
+                    if r2 is not None:
+                        nxt[i] = (t, f, r2)
+            reqs = nxt
+
+    def _dust_prepass(self, frames: dict) -> None:
+        """The dust stage of every OK stream as one batched call.  Streams
+        where the prep finds nothing stage a no-points marker; streams not
+        in the OK dust regime (initializing, LOST, localization-vo
+        arbitration) keep the per-stream path."""
+        preps = []
+        for i, frame in frames.items():
+            t = self.systems[i].tracker
+            if t.state != tr.OK or (t.only_tracking and t.vo_mode):
+                continue
+            # the single-stream paths scrub replaced points before the dust
+            # gather reads the last frame's bindings (R1)
+            t._check_replaced_in_last_frame()
+            p = t.prepare_dust(frame, bank_desc=True)
+            if p is None:
+                t.staged_dust = (frame, None)
+            else:
+                preps.append((i, t, frame, p))
+        if not preps:
+            return
+        self.n_batched_dust += len(preps)
+        ids = [p[0] for p in preps]
+        rows = self._prestack([p[3][2] for p in preps], ids,
+                              ((4, "dense_dust"), (5, "occ_grid"),
+                               (6, "desc")))
+        outs = self._run_batched(self.kernels.dust_track_batch, rows, ids)
+        for (i, t, frame, (pids, Tcw_pred, _)), o in zip(preps, outs):
+            t.staged_dust = (frame, (pids, Tcw_pred, o))
+
+    def _local_prepass(self, frames: dict) -> None:
+        """The fine (local-map) stage's primary call of every stream whose
+        coarse phase succeeded as one batched call per window width."""
+        groups = {False: [], True: []}
+        for i, frame in frames.items():
+            t = self.systems[i].tracker
+            if t._phase is None or not t._phase[0]:
+                continue        # init frame, or every coarse stage failed
+            prep = t.prepare_local_map(frame, bank_desc=True)
+            groups[prep["wide"]].append((i, t, frame, prep))
+        for wide, grp in groups.items():
+            if not grp:
+                continue
+            self.n_batched_local += len(grp)
+            ids = [g[0] for g in grp]
+            rows = self._prestack([p["args"] for _, _, _, p in grp], ids,
+                                  ((7, "desc"),))
+            outs = self._run_batched(
+                lambda rows, w=wide, bank=False: self.kernels
+                .local_map_track_batch(rows, wide=w, bank=bank), rows, ids)
+            for (i, t, frame, prep), o in zip(grp, outs):
+                t.staged_local = (frame, prep, o)
+
+    def _run_batched(self, batch_fn, rows: list, stream_ids: list) -> list:
+        """Run a batched stage over the rows of `stream_ids` (BankRows
+        descriptor slots go to the bank layout) and charge its wall time to
+        those streams' `tracking/total`, an equal share each."""
+        t0 = time.perf_counter()
+        rows, bank = self._bankify(rows)
+        outs = batch_fn(rows, bank=bank)
+        share = (time.perf_counter() - t0) / len(stream_ids)
+        for i in stream_ids:
+            self.systems[i].timer.add("tracking/total", share)
+        return outs
+
+    def _bankify(self, rows: list):
+        """BankRows rows -> the bank layout: the host row indices take the
+        descriptor slot and ONE trailing PreStacked carries the stacked
+        per-stream descriptor banks.  The stack is cached, keyed by the
+        rows' (bank, version) composition, so stage groups of one tick with
+        different rows keep their own stacks; all rows must agree on the
+        mode."""
+        is_bank = [isinstance(r[DESC], BankRows) for r in rows]
+        if not any(is_bank):
+            return rows, False
+        if not all(is_bank):
+            raise ValueError("_bankify: rows disagree on bank mode")
+        brs = [r[DESC] for r in rows]
+        key = tuple((id(b.bank), b.version) for b in brs)
+        hit = self._bank_stacks.pop(key, None)
+        if hit is None:
+            hit = (tuple(b.bank for b in brs),   # keeps the ids alive
+                   PreStacked(torch.stack([b.bank for b in brs])))
+            while len(self._bank_stacks) >= BANK_STACKS:
+                self._bank_stacks.pop(next(iter(self._bank_stacks)))
+        self._bank_stacks[key] = hit             # most recent last
+        out = []
+        for r in rows:
+            rr = list(r)
+            rr[DESC] = r[DESC].rows
+            rr.append(hit[1])
+            out.append(tuple(rr))
+        return out, True
+
+    def _prestack(self, rows: list, stream_ids: list, pos_fields) -> list:
+        """Replace per-stream frame arguments (each a row of this tick's
+        batched extraction) with ONE gathered PreStacked per argument
+        position: one gather for the whole batch instead of N slices and a
+        stack."""
+        feats = self._tick_feats
+        if feats is None or any(i not in self._tick_slot
+                                for i in stream_ids):
+            return rows
+        idx = torch.tensor([self._tick_slot[i] for i in stream_ids],
+                           device=self.device)
+        rows = [list(r) for r in rows]
+        for pos, field in pos_fields:
+            ps = PreStacked(getattr(feats, field).index_select(0, idx))
+            for r in rows:
+                r[pos] = ps
+        return [tuple(r) for r in rows]
+
+    def warmup(self) -> None:
+        """Run the batched extraction + feature readback and every batched
+        stage (dust, local narrow and wide, motion, reloc, in bank mode)
+        once at fleet width on dummy inputs, so kernel builds and first-use
+        allocations leave the timed ticks."""
+        cfg = self.cfg
+        if self._extract is not None:  # injected-feature fleets never extract
+            H, W = cfg.camera.height, cfg.camera.width
+            feats = self._extract_batch([np.zeros((H, W), np.uint8)])
+            self.kernels.fetch_features_host_batch(feats, self.n)
+        cap = self.systems[0].map.pool.capacity
+        K = cfg.runtime.max_keypoints
+        P = cfg.runtime.dust_points_cap
+        L = cfg.runtime.local_points_cap
+        hc, wc = cfg.grid_h, cfg.grid_w
+        dev = self.device
+        eye = np.eye(4, dtype=np.float32)
+
+        def val(n):
+            v = np.zeros(n, bool)
+            v[:4] = True
+            return v
+
+        bank = torch.zeros((cap, 256), device=dev)
+        br_p = BankRows(np.zeros(P, np.int32), val(P), bank)
+        br_l = BankRows(np.zeros(L, np.int32), val(L), bank)
+        desc_k = torch.zeros((K, 256), device=dev)
+        uv = np.zeros((K, 2), np.float32)
+        cov = np.ones((K, 2), np.float32)
+        dust = torch.zeros((hc, wc), device=dev)
+        occ = torch.full((hc, wc), -1, dtype=torch.int32, device=dev)
+        k = self.kernels
+        drow = (eye, np.zeros((P, 3), np.float32), br_p, val(P), dust, occ,
+                desc_k, uv, cov, val(K))
+        lrow = (eye, np.zeros((L, 3), np.float32), br_l,
+                np.zeros((L, 3), np.float32), val(L), np.zeros(L, bool),
+                np.full(K, -1, np.int64), desc_k, uv, cov, val(K))
+        mrow = (eye, np.zeros((L, 3), np.float32), br_l, val(L), desc_k, uv,
+                cov, val(K))
+        rrow = (np.stack([eye] * 16), np.zeros((L, 3), np.float32), br_l,
+                val(L), desc_k, uv, cov, val(K))
+        for stage, row in ((k.dust_track_batch, drow),
+                           (k.local_map_track_batch, lrow),
+                           (lambda rows, bank: k.local_map_track_batch(
+                               rows, wide=True, bank=bank), lrow),
+                           (k.motion_track_batch, mrow),
+                           (k.reloc_track_batch, rrow)):
+            rows, bank = self._bankify([row] * self.n)
+            stage(rows, bank=bank)
+        self._bank_stacks.clear()
+
+    # ------------------------------------------------------------- lifecycle
+
+    def spin(self, datasets: Sequence, max_frames: Optional[int] = None
+             ) -> None:
+        """Drive N datasets to exhaustion (streams may end at different
+        lengths; finished streams go idle)."""
+        iters = [iter(d) for d in datasets]
+        done = [False] * self.n
+        n_ticks = 0
+        while not all(done):
+            raws: List[Optional[RawFrame]] = []
+            for i, it in enumerate(iters):
+                raw = None if done[i] else next(it, None)
+                done[i] = raw is None
+                raws.append(raw)
+            if all(r is None for r in raws):
+                break
+            self.tick(raws)
+            n_ticks += 1
+            if max_frames is not None and n_ticks >= max_frames:
+                break
+        self.shutdown()
+
+    def load_map(self, path: str, localization: bool = True) -> None:
+        """Multi-camera localization server: every stream loads the same
+        saved map (slam/serialize.py) and, by default, freezes it
+        (localization mode).  Each stream keeps its own Map instance, so
+        per-stream bookkeeping (found / visible counters, relocalization
+        state) stays independent."""
+        for s in self.systems:
+            s.load_map(path)
+            if localization:
+                s.activate_localization_mode()
+
+    def shutdown(self) -> None:
+        """Nothing runs in the background offline: kept for the JAX
+        package's serving API."""
+
+    def report(self) -> List[dict]:
+        return [s.report() for s in self.systems]

@@ -28,8 +28,13 @@ before its single copy (the init stage reads the match count once: the
 RANSAC draws depend on it).  Index arrays are int64 on the device and every
 gather index is clamped into range (JAX clamps silently; CUDA asserts).
 Conflicts resolve by minimum distance (ops/matching.py).  On the card the
-init matcher is the `match` kernel (ops/cuda_match.py, batch 1); the
-fleet's batched variants wait for the multi-stream slice.
+init matcher is the `match` kernel (ops/cuda_match.py, batch 1).
+
+The `*_batch` stages serve the fleet (slam/fleet.py) and the mapper: the
+same bodies under `torch.func.vmap` (the counterpart of `jax.vmap`) over a
+list of per-row argument tuples, with ONE packed upload of every row's host
+arguments and ONE packed readback (`upload_rows`, `PreStacked`,
+`BankRows`).  Every batched stage is vmapped; none loops over its rows.
 """
 
 from __future__ import annotations
@@ -84,6 +89,17 @@ class Layout:
         return out
 
 
+def _as_kind(t: torch.Tensor, a: np.ndarray) -> torch.Tensor:
+    """A slice of a packed float32 upload back in the kind of the numpy
+    argument it came from: bools as bool, integers as int64 (exact below
+    2^24), floats as they are."""
+    if a.dtype == np.bool_:
+        return t > 0.5
+    if np.issubdtype(a.dtype, np.integer):
+        return t.round().long()
+    return t
+
+
 def upload(args, device: torch.device) -> list:
     """Move a stage's arguments to `device`: every numpy (or Python scalar)
     argument travels in ONE packed float32 copy and is sliced back on the
@@ -98,21 +114,93 @@ def upload(args, device: torch.device) -> list:
         buf = torch.from_numpy(flat).to(device)
         off = 0
         for i, a in host:
-            t = buf[off:off + a.size].view(a.shape)
+            out[i] = _as_kind(buf[off:off + a.size].view(a.shape), a)
             off += a.size
-            if a.dtype == np.bool_:
-                t = t > 0.5
-            elif np.issubdtype(a.dtype, np.integer):
-                t = t.round().long()
-            out[i] = t
     return [a.to(device) if a.device != device else a for a in out]
 
 
+class PreStacked:
+    """Marks a device argument that is ALREADY stacked across the rows of a
+    batched stage: `upload_rows` uses `.array` (leading dim = rows) as it
+    is instead of stacking per-row tensors, so the per-row slices never
+    exist.  Every row of the batch carries the SAME object at that
+    position (the fleet builds one per tick from the batched extraction
+    output or the stacked descriptor banks)."""
+
+    __slots__ = ("array",)
+
+    def __init__(self, array: torch.Tensor):
+        self.array = array
+
+
+class BankRows:
+    """Descriptor-argument placeholder for the fleet's bank mode: instead of
+    a per-stream on-device row gather, the prep hands back the gather's
+    inputs and the batched stage computes `where(valid, bank[rows], 0)`
+    inside the batch (`_bank_variant`).  `version` is the pool's bank
+    version at prep time: the port's banks are updated in place, so the
+    fleet keys its stacked-bank cache on (bank, version)."""
+
+    __slots__ = ("rows", "valid", "bank", "version")
+
+    def __init__(self, rows, valid, bank, version: int = 0):
+        self.rows = rows
+        self.valid = valid
+        self.bank = bank
+        self.version = version
+
+
+def _bank_variant(body_fn, desc_idx: int, valid_idx: int):
+    """Wrap a stage so the descriptor argument at `desc_idx` is gathered
+    inside it: callers pass the bank-row indices at `desc_idx` and append
+    the descriptor bank as the LAST argument."""
+
+    def fn(*args):
+        rows, valid, bank = args[desc_idx], args[valid_idx], args[-1]
+        inner = list(args[:-1])
+        inner[desc_idx] = torch.where(valid[:, None], bank[rows], 0.0)
+        return body_fn(*inner)
+
+    return fn
+
+
+def upload_rows(rows, device: torch.device) -> list:
+    """The batched `upload`: a list of per-row argument tuples -> one
+    stacked tensor per position.  Every host argument of every row travels
+    in ONE packed (rows, L) float32 copy; per-row tensors are stacked on
+    the device; a PreStacked is used as it is."""
+    n = len(rows)
+    out: list = [None] * len(rows[0])
+    host = []
+    for i in range(len(out)):
+        col = [r[i] for r in rows]
+        if isinstance(col[0], PreStacked):
+            if any(c is not col[0] for c in col):
+                raise ValueError("a PreStacked argument must be the same "
+                                 "object in every row")
+            out[i] = col[0].array.to(device)
+        elif isinstance(col[0], torch.Tensor):
+            out[i] = torch.stack([c.to(device) for c in col])
+        else:
+            host.append((i, np.stack([np.asarray(c) for c in col])))
+    if host:
+        flat = np.concatenate([a.reshape(n, -1).astype(np.float32, copy=False)
+                               for _, a in host], axis=1)
+        buf = torch.from_numpy(flat).to(device)
+        off = 0
+        for i, a in host:
+            size = a[0].size
+            out[i] = _as_kind(buf[:, off:off + size].reshape(a.shape), a)
+            off += size
+    return out
+
+
 def _scatter_flags(n: int, idx: torch.Tensor) -> torch.Tensor:
-    """(n,) bool: True at every idx >= 0 (idx values in [-1, n))."""
+    """(n,) bool: True at every idx >= 0 (idx values in [-1, n)).  Out of
+    place, so the stages that use it run under torch.func.vmap."""
+    slot = torch.where(idx >= 0, idx, n).long()
     flags = torch.zeros(n + 1, dtype=torch.bool, device=idx.device)
-    flags[torch.where(idx >= 0, idx, n).long()] = True
-    return flags[:n]
+    return flags.scatter(0, slot, True)[:n]
 
 
 def _project(Tcw, pts, K_intr):
@@ -502,17 +590,35 @@ class TrackingKernels:
     def _read(layout: Layout, flat: torch.Tensor) -> dict:
         return layout.unpack(flat.cpu().numpy())
 
-    @_stage
-    def fetch_features_host(self, feats, b: int = 0) -> dict:
-        """One packed copy of a frame's host mirrors."""
-        out = self._read(self.feat_layout, self.feat_layout.pack(
-            uv=feats.uv[b], score=feats.score[b], response=feats.response[b],
-            valid=feats.valid[b], cov2_inv=feats.cov2_inv[b],
-            occ_grid=feats.occ_grid[b], count=feats.count[b]))
+    def _feat_flat(self, uv, score, response, valid, cov2_inv, occ_grid,
+                   count):
+        return self.feat_layout.pack(
+            uv=uv, score=score, response=response, valid=valid,
+            cov2_inv=cov2_inv, occ_grid=occ_grid, count=count)
+
+    @staticmethod
+    def _host_mirrors(out: dict) -> dict:
         for k in ("uv", "score", "response", "cov2_inv"):
             out[k] = out[k].astype(np.float32)
         out["occ_grid"] = out["occ_grid"].astype(np.int32)
         return out
+
+    def fetch_features_host(self, feats, b: int = 0) -> dict:
+        """One packed copy of a frame's host mirrors."""
+        return self._fetch_rows(feats, slice(b, b + 1))[0]
+
+    def fetch_features_host_batch(self, feats, n: int) -> List[dict]:
+        """The host mirrors of rows 0..n-1 of a batched extraction in ONE
+        packed copy (the fleet's per-tick feature readback)."""
+        return self._fetch_rows(feats, slice(0, n))
+
+    @_stage
+    def _fetch_rows(self, feats, rows: slice) -> List[dict]:
+        flat = torch.func.vmap(self._feat_flat)(
+            feats.uv[rows], feats.score[rows], feats.response[rows],
+            feats.valid[rows], feats.cov2_inv[rows], feats.occ_grid[rows],
+            feats.count[rows]).cpu().numpy()
+        return [self._host_mirrors(self.feat_layout.unpack(r)) for r in flat]
 
     @_stage
     def gather_rows(self, bank, rows, valid) -> torch.Tensor:
@@ -522,13 +628,79 @@ class TrackingKernels:
         bank, rows, valid = self._up((bank, rows, valid))
         return torch.where(valid[:, None], bank[rows], 0.0)
 
+    def _batch(self, fn, layout: Layout, rows, bank: bool = False,
+               desc_idx: int = 2, valid_idx: int = 3) -> List[dict]:
+        """`fn` (a stage of device tensors returning a dict) over the
+        per-row argument tuples `rows` under torch.func.vmap: ONE packed
+        upload of every row's host arguments, ONE packed readback.  With
+        `bank` the descriptor slot holds bank-row indices and each row
+        ends with the stacked descriptor banks (BankRows)."""
+        if bank:
+            fn = _bank_variant(fn, desc_idx, valid_idx)
+        args = upload_rows(rows, self.device)
+        flat = torch.func.vmap(lambda *a: layout.pack(**fn(*a)))(*args)
+        return [layout.unpack(r) for r in flat.cpu().numpy()]
+
+    def _batch_chunked(self, fn, layout: Layout, rows,
+                       max_width: int = 8) -> List[dict]:
+        """The mapper's batches: chunks of at most `max_width` rows, one
+        upload and one readback each (a single row runs unbatched), so the
+        vmapped working set stays bounded."""
+        outs = []
+        for i in range(0, len(rows), max_width):
+            chunk = rows[i:i + max_width]
+            if len(chunk) == 1:
+                outs.append(self._read(layout,
+                                       layout.pack(**fn(*self._up(chunk[0])))))
+            else:
+                outs.extend(self._batch(fn, layout, chunk))
+        return outs
+
+    # ---- stage functions of device tensors ---------------------------------
+
+    def _dust_fn(self, *a):
+        return dust_track_body(*a, self.K_intr, **self._dust_kw)
+
+    def _motion_fn(self, *a):
+        mo = self.cfg.tracking.motion
+        return motion_track_body(*a, self.K_intr, self.bounds,
+                                 radius=float(mo.th_window_size),
+                                 n_retry_th=mo.th_nmatch_proj)
+
+    def _reloc_fn(self, *a):
+        return reloc_track_body(
+            *a, self.K_intr, self.bounds,
+            radius2=float(self.cfg.tracking.map.th_window_reloc))
+
+    def _local_fn(self, wide: bool):
+        m = self.cfg.tracking.map
+        window_th = float(m.th_window_retry if wide else m.th_window_size)
+        return lambda *a: local_map_track_body(
+            *a, self.K_intr, self.bounds, window_th=window_th,
+            **self._local_kw)
+
+    def _tri_fn(self, *a):
+        mp = self.cfg.mapping
+        return triangulate_body(*a, self.K_intr, nn_ratio=0.7,
+                                method=mp.matching_method,
+                                seed_px_noise=mp.depth_filter.seed_px_noise)
+
+    def _fuse_fn(self, *a):
+        return fuse_body(*a, self.K_intr, self.bounds, radius=3.0)
+
     # ---- tracking ----------------------------------------------------------
 
     @_stage
     def dust_track(self, *args):
-        a = self._up(args)
-        out = dust_track_body(*a, self.K_intr, **self._dust_kw)
-        return self._read(self.dust_layout, self.dust_layout.pack(**out))
+        return self._read(self.dust_layout,
+                          self.dust_layout.pack(**self._dust_fn(
+                              *self._up(args))))
+
+    @_stage
+    def dust_track_batch(self, rows, bank: bool = False) -> List[dict]:
+        """The dust stage over per-stream argument tuples (the fleet's
+        prepass): one upload, one readback for the whole fleet."""
+        return self._batch(self._dust_fn, self.dust_layout, rows, bank)
 
     @_stage
     def fused_track(self, *args, wide: bool = False):
@@ -550,11 +722,14 @@ class TrackingKernels:
 
     @_stage
     def motion_track(self, *args):
-        mo = self.cfg.tracking.motion
-        out = motion_track_body(
-            *self._up(args), self.K_intr, self.bounds,
-            radius=float(mo.th_window_size), n_retry_th=mo.th_nmatch_proj)
-        return self._read(self.track_layout, self.track_layout.pack(**out))
+        return self._read(self.track_layout, self.track_layout.pack(
+            **self._motion_fn(*self._up(args))))
+
+    @_stage
+    def motion_track_batch(self, rows, bank: bool = False) -> List[dict]:
+        """The motion-model fallback of every stream whose dust stage
+        failed this tick (the fleet's coarse_phase2)."""
+        return self._batch(self._motion_fn, self.track_layout, rows, bank)
 
     @_stage
     def ref_track(self, *args):
@@ -563,24 +738,32 @@ class TrackingKernels:
 
     @_stage
     def reloc_track(self, *args):
-        out = reloc_track_body(
-            *self._up(args), self.K_intr, self.bounds,
-            radius2=float(self.cfg.tracking.map.th_window_reloc))
-        return self._read(self.track_layout, self.track_layout.pack(**out))
+        return self._read(self.track_layout, self.track_layout.pack(
+            **self._reloc_fn(*self._up(args))))
 
-    def _local(self, args, window_th):
-        out = local_map_track_body(*self._up(args), self.K_intr, self.bounds,
-                                   window_th=window_th, **self._local_kw)
-        return self._read(self.local_layout, self.local_layout.pack(**out))
+    @_stage
+    def reloc_track_batch(self, rows, bank: bool = False) -> List[dict]:
+        """The multi-start rescue of the fleet's fine retry rounds."""
+        return self._batch(self._reloc_fn, self.track_layout, rows, bank)
 
     @_stage
     def local_map_track(self, *args):
-        return self._local(args, float(self.cfg.tracking.map.th_window_size))
+        return self._read(self.local_layout, self.local_layout.pack(
+            **self._local_fn(False)(*self._up(args))))
 
     @_stage
     def local_map_track_wide(self, *args):
         """Starvation retry at the widened window (th_window_retry)."""
-        return self._local(args, float(self.cfg.tracking.map.th_window_retry))
+        return self._read(self.local_layout, self.local_layout.pack(
+            **self._local_fn(True)(*self._up(args))))
+
+    @_stage
+    def local_map_track_batch(self, rows, wide: bool = False,
+                              bank: bool = False) -> List[dict]:
+        """The fine stage over per-stream argument tuples (the fleet's
+        local prepass and its wide retries)."""
+        return self._batch(self._local_fn(wide), self.local_layout, rows,
+                           bank, desc_idx=2, valid_idx=4)
 
     @_stage
     def init_two_view(self, kp1_desc, kp1_uv, kp1_valid, prev_uv, kp2_desc,
@@ -592,33 +775,19 @@ class TrackingKernels:
 
     # ---- mapping -----------------------------------------------------------
 
-    def _tri_flat(self, args):
-        mp = self.cfg.mapping
-        out = triangulate_body(
-            *self._up(args), self.K_intr, nn_ratio=0.7,
-            method=mp.matching_method,
-            seed_px_noise=mp.depth_filter.seed_px_noise)
-        return self.tri_layout.pack(**out)
-
-    def _fuse_flat(self, args):
-        out = fuse_body(*self._up(args), self.K_intr, self.bounds, radius=3.0)
-        return self.fuse_layout.pack(**out)
-
     @_stage
     def triangulate_pair_batch(self, rows):
-        """Every neighbour row's triangulation, one packed readback."""
-        return self._rows(self._tri_flat, self.tri_layout, rows)
+        """Every neighbour row's triangulation, one packed upload and
+        readback per chunk of 8 rows."""
+        return self._batch_chunked(self._tri_fn, self.tri_layout, rows)
 
     @_stage
     def fuse(self, *args):
-        return self._read(self.fuse_layout, self._fuse_flat(args))
+        return self._read(self.fuse_layout, self.fuse_layout.pack(
+            **self._fuse_fn(*self._up(args))))
 
     @_stage
     def fuse_batch(self, rows):
-        """Every target-KF row's fuse candidates, one packed readback."""
-        return self._rows(self._fuse_flat, self.fuse_layout, rows)
-
-    @staticmethod
-    def _rows(flat_fn, layout, rows):
-        flat = torch.cat([flat_fn(r) for r in rows]).cpu().numpy()
-        return [layout.unpack(f) for f in flat.reshape(len(rows), -1)]
+        """Every target-KF row's fuse candidates, one packed upload and
+        readback per chunk of 8 rows."""
+        return self._batch_chunked(self._fuse_fn, self.fuse_layout, rows)

@@ -8,9 +8,10 @@ matching run in the device stages (slam/kernels.py); graph surgery stays
 host-side.
 
 The port of the JAX package's slam/local_mapping.py: the synchronous
-`spin_once` drive and the init-time global BA.  The mapping thread with its
-stop/accept protocol waits for the online slice, the staged global BA and
-the loop-closing hand-off for the loop-closing slice.
+`spin_once` drive, the init-time global BA and the offline half of the
+stop/release protocol (localization mode stops the mapper).  The mapping
+thread waits for the online slice, the staged global BA and the
+loop-closing hand-off for the loop-closing slice.
 """
 
 from __future__ import annotations
@@ -233,6 +234,20 @@ class LocalMapping:
 
     def interrupt_ba(self) -> None:
         self.abort_ba = True
+
+    # stop/release protocol (RequestStop/isStopped/Release,
+    # local_mapper.cpp:~300): offline there is no thread to reach the
+    # check, so a request stops the mapper at once and a stopped mapper's
+    # spin_once does nothing
+    def request_stop(self) -> None:
+        self.abort_ba = True
+        self.stopped = True
+
+    def release(self) -> None:
+        self.stopped = False
+
+    def wait_until_stopped(self) -> bool:
+        return self.stopped
 
     # ----------------------------------------------------------- drive mode
 

@@ -10,8 +10,9 @@ mode (spinOnce after each frame, system.cpp:176-178).
 
 The port keeps its own copy of the JAX package's slam/map.py; the device
 descriptor banks are torch tensors on the system's device.  The loop-closing
-state (loop edges, staged global-BA poses, the erase pin) and the
-place-recognition hook wait for the loop-closing slice.
+state (staged global-BA poses, the erase pin) and the place-recognition
+hook wait for the loop-closing slice; loop edges are kept for map
+save/load (slam/serialize.py).
 
 Semantics reproduced (citations):
 - distinctive descriptor = observation descriptor minimizing the median L2
@@ -78,6 +79,14 @@ class MapPointPool:
         self._banks = {}                       # name -> device tensor
         self._dirty = {"desc_track": set(), "desc": set()}
         self._bank_version = {"desc_track": 0, "desc": 0}
+
+    def invalidate_banks(self) -> None:
+        """Drop the device mirrors (bulk host rewrite, e.g. map load)."""
+        self._banks.clear()
+        for d in self._dirty.values():
+            d.clear()
+        for k in self._bank_version:
+            self._bank_version[k] += 1
 
     def write_desc(self, pid: int, row: np.ndarray) -> None:
         self.desc[pid] = row
@@ -174,6 +183,7 @@ class KeyFrame:
         self.parent: int = -1
         self.children: set = set()
         self.first_connection = True
+        self.loop_edges: set = set()             # kept by map save/load
         self.global_desc: Optional[np.ndarray] = frame.global_desc
 
     @property

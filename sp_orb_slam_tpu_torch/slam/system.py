@@ -6,8 +6,10 @@ mapping on one device, drives frames through them in the reference's
 deterministic offline mode (mapping spins synchronously after each frame,
 system.cpp:176-178) and exports TUM / KITTI / EuRoC trajectories by
 re-chaining relative poses through (possibly culled) reference keyframes
-(system_helper.cpp:89-318).  Loop closing, map save/load, localization
-mode and the online threads wait for their slices.
+(system_helper.cpp:89-318).  Map save/load (slam/serialize.py) and
+localization mode are here; N systems can share one TrackingKernels
+(slam/fleet.py).  Loop closing and the online threads wait for their
+slices.
 """
 
 from __future__ import annotations
@@ -86,10 +88,14 @@ def build_preprocess(cfg: Config, device: torch.device):
 
 class System:
     def __init__(self, cfg: Config, params=None,
+                 kernels: Optional[TrackingKernels] = None,
                  device: str | torch.device = "cuda"):
         """`params`: the frontend's state dict (models/weights.py), needed
         for image datasets; every stage runs on `device`, the card unless
-        the caller passes "cpu" (without a card this raises)."""
+        the caller passes "cpu" (without a card this raises).  `kernels`
+        optionally injects a shared TrackingKernels on the same device: its
+        stages hold no per-run state, so N systems (slam/fleet.py) share
+        one."""
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device available; pass device='cpu' "
@@ -101,10 +107,19 @@ class System:
         self.cfg = cfg
         self.device = dev
         self.map = Map(device=dev)
-        self.kernels = TrackingKernels(cfg, device=dev)
+        if kernels is not None and kernels.device != dev:
+            raise ValueError(f"shared kernels run on {kernels.device}, the "
+                             f"system on {dev}")
+        self.kernels = (kernels if kernels is not None
+                        else TrackingKernels(cfg, device=dev))
         self.mapper = LocalMapping(cfg, self.map, self.kernels)
         self.tracker = Tracking(cfg, self.map, self.kernels, self.mapper)
         self.frame_id = 0
+        # mode toggles (the reference's global::b_* flags, consumed by
+        # System::spin/run, system.cpp:141-233), applied before a frame
+        self._local_on = False           # pending ActivateLocalizationMode
+        self._local_off = False          # pending DeactivateLocalizationMode
+        self._system_reset = False       # pending resetSystem
         self._extract = None
         self._preprocess = None
         self._prefetched = None          # (raw, features) in flight
@@ -188,6 +203,63 @@ class System:
             self.mapper.spin_once()
         self.frame_id += 1
 
+    # ------------------------------------------------------- mode toggles
+
+    def activate_localization_mode(self) -> None:
+        """Queue the switch to tracking-only (ActivateLocalizationMode):
+        applied at the next `run`/`spin` frame, like the reference's
+        `global::b_local_on` flag (system.cpp:203-215)."""
+        self._local_on = True
+        self._local_off = False
+
+    def deactivate_localization_mode(self) -> None:
+        self._local_off = True
+        self._local_on = False
+
+    def request_system_reset(self) -> None:
+        """The viewer-menu Reset (`global::b_system_reset`,
+        system.cpp:222-226)."""
+        self._system_reset = True
+
+    def _apply_pending_toggles(self) -> None:
+        if self._local_on:
+            # stop the mapper so the map is frozen, then inform the tracker
+            # (system.cpp:204-215)
+            self.mapper.request_stop()
+            self.mapper.wait_until_stopped()
+            self.tracker.only_tracking = True
+            self._local_on = False
+        if self._local_off:
+            self.tracker.only_tracking = False
+            self.mapper.release()
+            self._local_off = False
+        if self._system_reset:
+            self.reset()
+            self._system_reset = False
+
+    def run(self, raw: RawFrame) -> Optional[np.ndarray]:
+        """Single-shot API (System::run, system.cpp:202-233): apply pending
+        toggles, track one frame, return its Tcw, or None for an invalid
+        pose (uninitialized, or LOST: after a LOST frame last_frame.Tcw
+        holds the failed stage's predicted pose)."""
+        self._apply_pending_toggles()
+        self.process(raw)
+        return self._last_valid_pose()
+
+    def run_frame(self, frame: FrameData) -> Optional[np.ndarray]:
+        """`run` for a pre-built frame."""
+        self._apply_pending_toggles()
+        self.process_frame(frame)
+        return self._last_valid_pose()
+
+    def _last_valid_pose(self) -> Optional[np.ndarray]:
+        from sp_orb_slam_tpu_torch.slam.tracking import LOST
+
+        lf = self.tracker.last_frame
+        if lf is None or self.tracker.state == LOST:
+            return None
+        return lf.Tcw
+
     def spin(self, dataset=None, max_frames: Optional[int] = None) -> None:
         """Run every frame of `dataset` (default: `make_dataset(cfg)`)."""
         if dataset is None:
@@ -203,6 +275,7 @@ class System:
             if max_frames is not None and i + 1 >= max_frames:
                 nxt = None
             self._next_raw = nxt
+            self._apply_pending_toggles()
             self.process(raw)
             raw = nxt
             i += 1
@@ -217,10 +290,44 @@ class System:
         self.mapper.recent_pids.clear()
         tr = self.tracker
         self.tracker = Tracking(self.cfg, self.map, self.kernels, self.mapper)
+        self.tracker.only_tracking = tr.only_tracking
+        self.tracker.fleet_bank_mode = tr.fleet_bank_mode
         self.tracker.rel_poses = tr.rel_poses
         self.tracker.refs = tr.refs
         self.tracker.times = tr.times
         self.tracker.lost_flags = tr.lost_flags
+
+    # ------------------------------------------------------- map persistence
+
+    def save_map(self, path: str) -> None:
+        """Persist the live map (slam/serialize.py): the build-once,
+        localize-many serving pattern."""
+        from sp_orb_slam_tpu_torch.slam.serialize import save_map
+
+        save_map(self.map, path)
+
+    def load_map(self, path: str) -> None:
+        """Replace the current map with a saved one and arm the tracker for
+        cold-start relocalization (the first frames enter through the
+        multi-start relocalization path instead of two-view init).  Call
+        before spinning; typically paired with
+        `activate_localization_mode()` to freeze the loaded map."""
+        from sp_orb_slam_tpu_torch.slam.serialize import load_map
+        from sp_orb_slam_tpu_torch.slam.tracking import LOST
+
+        self.map = load_map(path, mp_capacity=self.map.pool.capacity,
+                            device=self.device)
+        self.mapper = LocalMapping(self.cfg, self.map, self.kernels)
+        only_tracking = self.tracker.only_tracking
+        fleet_bank = self.tracker.fleet_bank_mode
+        self.tracker = Tracking(self.cfg, self.map, self.kernels,
+                                self.mapper)
+        self.tracker.only_tracking = only_tracking
+        self.tracker.fleet_bank_mode = fleet_bank
+        live = [k for k, kf in self.map.keyframes.items() if not kf.bad]
+        if live:
+            self.tracker.state = LOST
+            self.tracker.ref_kf = max(live)
 
     # ------------------------------------------------------------ trajectory
 

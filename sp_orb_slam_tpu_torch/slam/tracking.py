@@ -14,11 +14,18 @@ tracker.cpp:986-1138) — here it is a working multi-start reference-KF
 match — and a LOST state with <= 5 KFs triggers a system reset
 (tracker.cpp:329-335).
 
-The port of the JAX package's slam/tracking.py, single-stream and offline:
-the fleet phases wait for the multi-stream slice, localization mode for
-map save/load, the heat coarse tracker for its variant.  The two-view
+The port of the JAX package's slam/tracking.py, offline: the single-stream
+drive (`track_frame`), the fleet's phased drive (`coarse_phase1/2`, the
+`prepare_*` preps in bank mode, `fine_begin_fleet` / `fine_step_fleet`,
+`track_frame_fine`; slam/fleet.py) and localization mode (`only_tracking`,
+`vo_mode`).  The heat coarse tracker waits for its variant.  The two-view
 init's RANSAC draws come from a torch.Generator seeded 31415926
 (initializer.cpp:77), one draw per attempt (`_init_draws`).
+
+One deliberate difference from the JAX fleet: `coarse_phase1` scrubs
+replaced points from the last frame's bindings
+(`_check_replaced_in_last_frame`), as both single-stream paths do; the JAX
+fleet path skips it and keeps stale ids (ROADMAP queue 3, R1).
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 
 from sp_orb_slam_tpu_torch.config import Config
 from sp_orb_slam_tpu_torch.slam.frame import FrameData
-from sp_orb_slam_tpu_torch.slam.kernels import TrackingKernels
+from sp_orb_slam_tpu_torch.slam.kernels import BankRows, TrackingKernels
 from sp_orb_slam_tpu_torch.slam.map import Map
 
 NO_IMAGES_YET = 0
@@ -54,6 +61,13 @@ class Tracking:
         self.matches_inliers = 0
         self.n_fail_dust = 0
         self.request_reset = False
+        self.vo_mode = False        # mbVO: only-tracking drifted off the map
+        self.only_tracking = False  # localization mode (InformOnlyTracking,
+        #                             system.cpp:213-218): map is frozen,
+        #                             KF creation gated off via the stopped
+        #                             mapper; inlier counting relaxes the
+        #                             n_obs > 0 condition (tracker.cpp:
+        #                             580-585)
         self.last_fail = ""  # diagnostic: why the latest stage rejected
         self._seen_ba_epoch = 0  # widened-window trigger (map.ba_epoch)
         self._desc_gather_cache = {}  # (bank, cap) -> (key, device desc)
@@ -65,12 +79,18 @@ class Tracking:
         self.local_kfs: List[int] = []
         self.local_pids: List[int] = []
         self.last_dust_pids: List[int] = []  # viz: coarse candidates
-        # the fused OK path stages its two halves for the regular
-        # consumers: (frame, payload) with payload = (pids, Tcw_pred, out)
-        # or None when prepare_dust found nothing (_track_dust), and
-        # (frame, prep, out) (_track_local_map)
+        # the fused OK path and the fleet's prepasses stage results for the
+        # regular consumers: (frame, payload) with payload = (pids,
+        # Tcw_pred, out) or None when prepare_dust found nothing
+        # (_track_dust), and (frame, prep, out) (_track_local_map)
         self.staged_dust = None
         self.staged_local = None
+        self._phase = None          # (ok, was_lost) between the fleet phases
+        self._coarse_ctx = None     # (was_lost, pids) across the batched
+        #                             motion fallback (coarse_phase1/2)
+        self._fine_st = None        # fine retry machine state (fleet drive)
+        self.fleet_bank_mode = False  # set by StreamFleet: preps hand back
+        #                               BankRows instead of gathering
         # trajectory bookkeeping (tracker.cpp:343-356)
         self.rel_poses: List[np.ndarray] = []
         self.refs: List[int] = []
@@ -91,6 +111,13 @@ class Tracking:
     # ------------------------------------------------------------------ API
 
     def track_frame(self, frame: FrameData) -> None:
+        if self._begin_frame(frame):
+            self._track(frame)
+            self._record_trajectory(frame)
+
+    def _begin_frame(self, frame: FrameData) -> bool:
+        """The head of every drive: True when the frame goes on to the
+        coarse cascade, False when it was an initialization frame."""
         self.map.advance_epoch()  # flush point-pool graveyard (map.py)
         if self.state == NO_IMAGES_YET:
             self.state = NOT_INITIALIZED
@@ -99,9 +126,69 @@ class Tracking:
             if self.state == OK:
                 self.velocity = np.eye(4, dtype=np.float32)
             self._record_trajectory(frame)
+            self._phase = None
+            return False
+        return True
+
+    # The fleet's phased drive (slam/fleet.py): coarse for every stream,
+    # then ONE batched fine-stage call, then per-stream fine consumption.
+
+    def track_frame_fine(self, frame: FrameData) -> None:
+        """Fleet phase 3: the fine stage (consuming any staged batched
+        result) + the state / motion-model / keyframe tail + trajectory
+        bookkeeping."""
+        if self._phase is None:
             return
-        self._track(frame)
+        ok, was_lost = self._phase
+        self._phase = None
+        self._track_fine(frame, ok, was_lost)
         self._record_trajectory(frame)
+
+    def coarse_phase1(self, frame: FrameData):
+        """Fleet phase 1 with a batchable motion fallback: the coarse
+        cascade of _track_coarse, except that when the dust stage fails and
+        the motion model has something to track from, the motion stage's
+        arguments are RETURNED for the fleet to run as one batched call
+        across every such stream (coarse_phase2 consumes)."""
+        if not self._begin_frame(frame):
+            return None
+        # R1: scrub replaced points as the single-stream paths do
+        self._check_replaced_in_last_frame()
+        ok = False
+        was_lost = self.state == LOST
+        if self.state == OK:
+            if self.only_tracking and self.vo_mode:
+                ok = self._relocalize(frame)
+                if ok:
+                    self.vo_mode = False
+            if not ok:
+                ok = self._track_dust(frame)
+            if not ok:
+                self.n_fail_dust += 1
+                prep = self.prepare_motion(
+                    frame, bank_desc=self.fleet_bank_mode)
+                if prep is not None:
+                    pids, args = prep
+                    self._coarse_ctx = (was_lost, pids)
+                    return args
+                ok = self._track_reference_kf(frame)
+        else:
+            ok = self._relocalize(frame)
+        frame.ref_kf = self.ref_kf
+        self._phase = (ok, was_lost)
+        return None
+
+    def coarse_phase2(self, frame: FrameData, out) -> None:
+        """Consume the batched motion-fallback result staged by
+        coarse_phase1 and finish the coarse cascade (reference-KF fallback
+        on failure, as _track_coarse)."""
+        was_lost, pids = self._coarse_ctx
+        self._coarse_ctx = None
+        ok = self._consume_motion(frame, pids, out)
+        if not ok:
+            ok = self._track_reference_kf(frame)
+        frame.ref_kf = self.ref_kf
+        self._phase = (ok, was_lost)
 
     # --------------------------------------------------------- initialization
 
@@ -248,8 +335,11 @@ class Tracking:
         discarded and the fallback cascade runs unchanged (costing the same
         roundtrips it always did).
 
+        Localization mode keeps the two-call path (its reloc-first
+        arbitration reorders the stages).
+
         Returns True when results were staged."""
-        if (not self.cfg.tracking.fused_ok_path
+        if (not self.cfg.tracking.fused_ok_path or self.only_tracking
                 or self.last_frame is None):
             return False
         # _track_coarse runs this first in the two-call path; the dust
@@ -337,7 +427,16 @@ class Tracking:
         ok = False
         was_lost = self.state == LOST
         if self.state == OK:
-            ok = self._track_dust(frame)
+            if self.only_tracking and self.vo_mode:
+                # mbVO arbitration (tracker.cpp localization mode): few map
+                # inliers means we drifted off the frozen map — attempt
+                # relocalization first and re-anchor on success, else keep
+                # visual odometry alive through the normal cascade
+                ok = self._relocalize(frame)
+                if ok:
+                    self.vo_mode = False
+            if not ok:
+                ok = self._track_dust(frame)
             if not ok:
                 self.n_fail_dust += 1
                 ok = self._track_motion_model(frame)
@@ -460,13 +559,17 @@ class Tracking:
         return pids[:P], n_kfs
 
     def _pad_mp_arrays(self, pids: List[int], cap: int,
-                       bank: str = "desc_track"):
+                       bank: str = "desc_track", bank_desc: bool = False):
         """Point arrays for a tracking kernel: positions/validity as small
         numpy uploads, descriptors as an ON-DEVICE row gather from the
         pool's device bank (they are the one multi-MB per-frame input and
         change only at mapper events — see MapPointPool.device_bank).
         Consecutive frames with the same point set and bank version reuse
-        the gathered device array outright."""
+        the gathered device array outright.
+
+        With `bank_desc` (the fleet's batched stages) no gather runs here:
+        the descriptor slot carries a BankRows placeholder and the batched
+        stage gathers inside the batch."""
         pos = np.zeros((cap, 3), np.float32)
         valid = np.zeros(cap, bool)
         rows = np.zeros(cap, np.int32)
@@ -476,6 +579,10 @@ class Tracking:
             pos[:n] = self.map.pool.pos[idx]
             rows[:n] = idx
             valid[:n] = True
+        if bank_desc:
+            pool = self.map.pool
+            return pos, BankRows(rows, valid, pool.device_bank(bank),
+                                 pool.bank_version(bank)), valid
         key = (bank, cap, id(self.map.pool),
                self.map.pool.bank_version(bank), tuple(pids[:n]))
         cached = self._desc_gather_cache.get((bank, cap))
@@ -487,11 +594,12 @@ class Tracking:
             self._desc_gather_cache[(bank, cap)] = (key, desc)
         return pos, desc, valid
 
-    def prepare_dust(self, frame: FrameData):
-        """Host-side input prep for the dust coarse stage.  Returns (pids, Tcw_pred, args) with args matching
-        kernels.dust_track, or None when there is nothing to track against.
-        Idempotent for the same frame (the fallback stages re-run
-        `_update_last_frame_pose` anyway)."""
+    def prepare_dust(self, frame: FrameData, bank_desc: bool = False):
+        """Host-side input prep for the dust coarse stage, split out so the
+        fleet's prepass can batch the stage across streams.  Returns (pids,
+        Tcw_pred, args) with args matching kernels.dust_track, or None when
+        there is nothing to track against.  Idempotent for the same frame
+        (the fallback stages re-run `_update_last_frame_pose` anyway)."""
         self._update_last_frame_pose()
         Tcw_pred = (self.velocity @ self.last_frame.Tcw
                     if self.velocity is not None else self.last_frame.Tcw)
@@ -504,7 +612,8 @@ class Tracking:
         if not pids:
             return None
         P = self.cfg.runtime.dust_points_cap
-        pos, desc_track, valid = self._pad_mp_arrays(pids, P)
+        pos, desc_track, valid = self._pad_mp_arrays(pids, P,
+                                                     bank_desc=bank_desc)
         args = (Tcw_pred.astype(np.float32), pos, desc_track, valid,
                 frame.dust_dev, frame.occ_grid_dev, frame.desc_dev,
                 frame.uv, frame.cov2_inv, frame.valid)
@@ -516,7 +625,7 @@ class Tracking:
         self.staged_dust = None
         d = self.cfg.tracking.dust
         if staged is not None and staged[0] is frame:
-            # the fused OK path already prepped + ran the stage
+            # the fused OK path or the fleet prepass ran the stage
             if staged[1] is None:
                 self.fail_dust_stages["no_points"] += 1
                 return False
@@ -567,10 +676,12 @@ class Tracking:
         frame.set_pose(Tcw_pred)
         return False
 
-    def prepare_motion(self, frame: FrameData):
-        """Host-side input prep for the motion-model fallback.  Returns
-        (pids, args) matching kernels.motion_track, or None when the model
-        has nothing to track from."""
+    def prepare_motion(self, frame: FrameData, bank_desc: bool = False):
+        """Host-side input prep for the motion-model fallback, split out so
+        the fleet can batch the stage across every stream whose dust stage
+        failed this tick.  Returns (pids, args) matching
+        kernels.motion_track, or None when the model has nothing to track
+        from."""
         if self.velocity is None:
             return None
         self._update_last_frame_pose()
@@ -585,7 +696,8 @@ class Tracking:
         if not pids:
             return None
         P = self.cfg.runtime.local_points_cap
-        pos, desc_track, valid = self._pad_mp_arrays(pids, P)
+        pos, desc_track, valid = self._pad_mp_arrays(pids, P,
+                                                     bank_desc=bank_desc)
         args = (Tcw_pred.astype(np.float32), pos, desc_track, valid,
                 frame.desc_dev, frame.uv, frame.cov2_inv, frame.valid)
         return pids, args
@@ -620,6 +732,13 @@ class Tracking:
                     mp.last_frame_seen = frame.frame_id
             elif mp is not None and mp.n_obs > 0:
                 n_map += 1
+        if self.only_tracking:
+            # mbVO relaxation (tracker.cpp:553-557): against a frozen map
+            # the bound-inlier count decays as the camera leaves the mapped
+            # region; accept on raw match count and let TrackLocalMap's
+            # widened-window search make the call.
+            self.vo_mode = n_map < self.cfg.tracking.motion.th_nmatch_opt
+            return int(out["n_match"]) > self.cfg.tracking.motion.th_nmatch_proj
         if n_map < self.cfg.tracking.motion.th_nmatch_opt:
             self.last_fail = (f"motion: n_map={n_map}"
                               f"<{self.cfg.tracking.motion.th_nmatch_opt} "
@@ -763,6 +882,10 @@ class Tracking:
                     mp.last_frame_seen = frame.frame_id
             elif mp is not None and mp.n_obs > 0:
                 n_map += 1
+        if self.only_tracking and T0s is None:
+            # same mbVO relaxation as the motion model: the fine stage gates
+            self.vo_mode = n_map < self.cfg.tracking.motion.th_nmatch_opt
+            return int(out["n_match"]) > self.cfg.tracking.motion.th_nmatch_proj
         if n_map < self.cfg.tracking.motion.th_nmatch_opt:
             self.last_fail = (f"ref: n_map={n_map}"
                               f"<{self.cfg.tracking.motion.th_nmatch_opt} "
@@ -857,10 +980,11 @@ class Tracking:
                         pids.append(mp.pid)
         return local_kfs, kf_max, pids
 
-    def prepare_local_map(self, frame: FrameData):
-        """Host-side prep for the fine stage.  Returns {pids, n, args,
-        wide}; mutates visibility bookkeeping, so it runs exactly once per
-        frame (the staged path skips the re-prep)."""
+    def prepare_local_map(self, frame: FrameData, bank_desc: bool = False):
+        """Host-side prep for the fine stage, split out so the fleet
+        prepass can batch the primary call across streams.  Returns {pids,
+        n, args, wide}; mutates visibility bookkeeping, so it runs exactly
+        once per frame (the staged path skips the re-prep)."""
         self._update_local_map(frame)
         L = self.cfg.runtime.local_points_cap
         pids = self.local_pids[:L]
@@ -893,16 +1017,21 @@ class Tracking:
             skip[:n] = [pid in bound_pids for pid in pids]
         # descriptors: on-device gather from the pool bank (changes only
         # at mapper events — MapPointPool.device_bank), cached across
-        # frames while the local-map set and bank are unchanged
-        key = ("desc_track", L, id(pool),
-               pool.bank_version("desc_track"), tuple(pids))
-        cached = self._desc_gather_cache.get(("desc_track", L))
-        if cached is not None and cached[0] == key:
-            desc = cached[1]
+        # frames while the local-map set and bank are unchanged; in the
+        # fleet's bank mode the gather moves into the batched stage
+        if bank_desc:
+            desc = BankRows(rows, valid, pool.device_bank("desc_track"),
+                            pool.bank_version("desc_track"))
         else:
-            desc = self.k.gather_rows(
-                pool.device_bank("desc_track"), rows, valid)
-            self._desc_gather_cache[("desc_track", L)] = (key, desc)
+            key = ("desc_track", L, id(pool),
+                   pool.bank_version("desc_track"), tuple(pids))
+            cached = self._desc_gather_cache.get(("desc_track", L))
+            if cached is not None and cached[0] == key:
+                desc = cached[1]
+            else:
+                desc = self.k.gather_rows(
+                    pool.device_bank("desc_track"), rows, valid)
+                self._desc_gather_cache[("desc_track", L)] = (key, desc)
 
         kp2mp0 = np.full(frame.K, -1, np.int64)
         for i in np.nonzero(frame.mp_ids >= 0)[0]:
@@ -925,9 +1054,11 @@ class Tracking:
             self._seen_ba_epoch = self.map.ba_epoch
         return {"pids": pids, "n": n, "args": args, "wide": wide}
 
-    # The fine stage's retry cascade as an explicit state machine (the
-    # multi-stream slice drives every stream's machine in lock-step rounds;
-    # _track_local_map drives it with immediate dispatch).  Requests are (kind, args) where
+    # The fine stage's retry cascade as an explicit state machine, so the
+    # fleet can drive every stream's machine in lock-step rounds with ONE
+    # batched call per round (slam/fleet.py _fine_retry_rounds) while
+    # _track_local_map drives it with immediate dispatch.  Requests are
+    # (kind, args) where
     # kind "reloc" runs the multi-start relocalization kernel and every
     # other kind ("wide"/"vel"/"polish") runs local_map_track_wide.
 
@@ -1010,9 +1141,43 @@ class Tracking:
         self._fine_advance(st)
 
     def _dispatch_fine(self, kind: str, rargs) -> dict:
+        # per-stream dispatch can inherit fleet-mode BankRows descriptor
+        # slots (a machine resumed outside the fleet drive): gather
+        rargs = tuple(self.k.gather_rows(a.bank, a.rows, a.valid)
+                      if isinstance(a, BankRows) else a for a in rargs)
         if kind == "reloc":
             return self.k.reloc_track(*rargs)
         return self.k.local_map_track_wide(*rargs)
+
+    def fine_begin_fleet(self, frame: FrameData):
+        """Fleet phase 2b: start this stream's fine retry machine from the
+        batched primary result staged by the fine prepass.  Returns the
+        first retry request (for the fleet to batch across streams) or None
+        when no retry is needed.  The machine's final best result is
+        re-staged so track_frame_fine consumes it without re-running."""
+        if self._phase is None or not self._phase[0]:
+            return None  # init frame or coarse failed: no fine stage
+        staged = self.staged_local
+        if staged is None or staged[0] is not frame:
+            return None  # the prepass missed this stream: per-stream path
+        self._fine_st = self._fine_begin(frame, staged[1], staged[2])
+        return self._finish_or_request(frame)
+
+    def fine_step_fleet(self, frame: FrameData, out: dict):
+        """Feed one batched retry result back; returns the next request or
+        None when the machine finished (result re-staged)."""
+        self._fine_step(self._fine_st, out)
+        return self._finish_or_request(frame)
+
+    def _finish_or_request(self, frame: FrameData):
+        st = self._fine_st
+        if st["req"] is not None:
+            return st["req"]
+        self._fine_st = None
+        prep = dict(st["prep"])
+        prep["retries_done"] = True
+        self.staged_local = (frame, prep, st["out"])
+        return None
 
     def _track_local_map(self, frame: FrameData) -> bool:
         """TrackLocalMap (tracker.cpp:561-615) + SearchLocalPoints (:768)."""
@@ -1026,10 +1191,11 @@ class Tracking:
                 out = self.k.local_map_track_wide(*prep["args"])
             else:
                 out = self.k.local_map_track(*prep["args"])
-        st = self._fine_begin(frame, prep, out)
-        while st["req"] is not None:
-            self._fine_step(st, self._dispatch_fine(*st["req"]))
-        out = st["out"]
+        if not prep.get("retries_done"):
+            st = self._fine_begin(frame, prep, out)
+            while st["req"] is not None:
+                self._fine_step(st, self._dispatch_fine(*st["req"]))
+            out = st["out"]
         pids, n, args = prep["pids"], prep["n"], prep["args"]
         # visible bookkeeping (IncreaseVisible on frustum hits, :798-804).
         # Already-bound points (args[5] = the prep-time skip mask) were
@@ -1057,7 +1223,9 @@ class Tracking:
                 continue
             if not frame.outlier[i]:
                 mp.n_found += 1
-                if mp.n_obs > 0:  # the point is in the map (tracker.cpp:580-585)
+                # localization mode counts every non-outlier binding; normal
+                # mode requires the point to be in the map (tracker.cpp:580-585)
+                if self.only_tracking or mp.n_obs > 0:
                     self.matches_inliers += 1
         self.inlier_fine.append(self.matches_inliers)
         self.inlier_fine_ratio.append(

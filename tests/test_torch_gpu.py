@@ -12,7 +12,8 @@ import torch
 from sp_orb_slam_tpu_torch.models.superpoint import (
     sample_descriptors, sample_descriptors_dense)
 from sp_orb_slam_tpu_torch.ops import (_build, cuda_cov, cuda_desc,
-                                       cuda_match, cuda_nms, cuda_pair1t)
+                                       cuda_match, cuda_nms, cuda_pair1,
+                                       cuda_pair1t)
 from sp_orb_slam_tpu_torch.ops.covariance import keypoint_covariance
 from sp_orb_slam_tpu_torch.ops.matching import init_match
 from sp_orb_slam_tpu_torch.ops.nms import greedy_grid_nms
@@ -47,6 +48,30 @@ def test_pair1t_kernel(cuda, gen, shape):
     assert got.shape == (B, H // 2, W // 2, 64)
     assert ((got - want).abs() <= 1e-2 * want.abs() + 1e-3).all()
     assert (got == want).float().mean() > 0.99
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 48, 200), (3, 480, 752)])
+def test_pair1_kernel(cuda, gen, shape):
+    """The row-pair kernel against its plain version (the tolerances of
+    tests/test_pallas_pair1.py: f32 sums in another order, atol 0.03 /
+    rtol 0.02, > 95 % bit-identical) and against the pair1t kernel, which
+    computes the same function; two blocks fit on an SM."""
+    B, H, W = shape
+    images = torch.rand(shape, generator=gen, device=cuda)
+    w = [torch.randn(s, generator=gen, device=cuda) * sc
+         for s, sc in (((64, 1, 3, 3), 0.5), ((64,), 0.1),
+                       ((64, 64, 3, 3), 0.05), ((64,), 0.1))]
+    n = _build.LAUNCHES["pair1"]
+    got = cuda_pair1.fused_pair1(images, *w).float()
+    want = cuda_pair1.fused_pair1_plain(images, *w).float()
+    other = cuda_pair1t.fused_pair1t(images, *w).float()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pair1"] == n + 1
+    assert got.shape == (B, H // 2, W // 2, 64)
+    for ref in (want, other):
+        assert ((got - ref).abs() <= 0.02 * ref.abs() + 0.03).all()
+        assert (got == ref).float().mean() > 0.95
+    assert cuda_pair1.blocks_per_sm(cuda) == 2
 
 
 @pytest.mark.parametrize("iters", [1, 4, 16])

@@ -12,7 +12,8 @@ import torch
 from sp_orb_slam_tpu_torch.config import Config
 from sp_orb_slam_tpu_torch.extractor import make_extractor
 from sp_orb_slam_tpu_torch.ops import (_build, cuda_cov, cuda_desc,
-                                       cuda_match, cuda_nms, cuda_pair1t)
+                                       cuda_match, cuda_nms, cuda_pair1,
+                                       cuda_pair1t)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -28,7 +29,7 @@ import sp_orb_slam_tpu_torch.ops.cuda_cov, sp_orb_slam_tpu_torch.ops.cuda_match
 import sp_orb_slam_tpu_torch.ops.cuda_nms, sp_orb_slam_tpu_torch.ops.cuda_pair1t
 import sp_orb_slam_tpu_torch.ops.matching, sp_orb_slam_tpu_torch.ops.nms
 import sp_orb_slam_tpu_torch.utils.precision
-import sp_orb_slam_tpu_torch.ops.cuda_desc
+import sp_orb_slam_tpu_torch.ops.cuda_desc, sp_orb_slam_tpu_torch.ops.cuda_pair1
 import sp_orb_slam_tpu_torch.geometry.se3, sp_orb_slam_tpu_torch.geometry.camera
 import sp_orb_slam_tpu_torch.geometry.triangulation
 import sp_orb_slam_tpu_torch.geometry.twoview
@@ -39,6 +40,7 @@ import sp_orb_slam_tpu_torch.slam.depth_filter
 import sp_orb_slam_tpu_torch.slam.kernels, sp_orb_slam_tpu_torch.slam.tracking
 import sp_orb_slam_tpu_torch.slam.local_mapping
 import sp_orb_slam_tpu_torch.slam.system
+import sp_orb_slam_tpu_torch.slam.serialize, sp_orb_slam_tpu_torch.slam.fleet
 import sp_orb_slam_tpu_torch.eval.ate, sp_orb_slam_tpu_torch.utils.timing
 import sp_orb_slam_tpu_torch.run_vo
 
@@ -59,7 +61,8 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300,
                          check=True).stdout.splitlines()
     assert out[0] == "[]", out[0]
-    for mod in ("extractor", "slam.system", "run_vo", "ops.cuda_desc"):
+    for mod in ("extractor", "slam.system", "run_vo", "ops.cuda_desc",
+                "ops.cuda_pair1", "slam.serialize", "slam.fleet"):
         assert f"sp_orb_slam_tpu_torch.{mod}" in out[1], mod
 
 
@@ -72,20 +75,26 @@ def test_make_extractor_raises_without_card():
         make_extractor(Config(), {})  # the default device is the card
 
 
-@pytest.mark.parametrize("entry", ["system", "tracking_kernels", "run_vo"])
+@pytest.mark.parametrize("entry", ["system", "tracking_kernels", "run_vo",
+                                   "fleet", "load_map"])
 def test_slam_entry_points_default_to_the_card(entry):
-    """System, TrackingKernels and the run_vo command line run on the card
-    unless told otherwise, and raise without one."""
+    """System, TrackingKernels, StreamFleet, serialize.load_map and the
+    run_vo command line run on the card unless told otherwise, and raise
+    without one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; this checks the no-card path")
     from sp_orb_slam_tpu_torch import run_vo
+    from sp_orb_slam_tpu_torch.slam import serialize
+    from sp_orb_slam_tpu_torch.slam.fleet import StreamFleet
     from sp_orb_slam_tpu_torch.slam.kernels import TrackingKernels
     from sp_orb_slam_tpu_torch.slam.system import System
 
     call = {"system": lambda: System(Config()),
             "tracking_kernels": lambda: TrackingKernels(Config()),
             "run_vo": lambda: run_vo.main(["--dataset", "synthetic",
-                                           "--synthetic-frames", "2"])}
+                                           "--synthetic-frames", "2"]),
+            "fleet": lambda: StreamFleet(Config(), 2, params=None),
+            "load_map": lambda: serialize.load_map("no_such_map.npz")}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call[entry]()
 
@@ -114,6 +123,9 @@ def _meta(*shape, dtype=torch.float32):
     lambda: cuda_pair1t.fused_pair1t(
         _meta(2, 16, 32), _meta(64, 1, 3, 3), _meta(64), _meta(64, 64, 3, 3),
         _meta(64)),
+    lambda: cuda_pair1.fused_pair1(
+        _meta(2, 16, 32), _meta(64, 1, 3, 3), _meta(64), _meta(64, 64, 3, 3),
+        _meta(64)),
     lambda: cuda_nms.batched_grid_nms(
         _meta(2, 4, 6), _meta(2, 4, 6, 2, dtype=torch.int32),
         _meta(2, 4, 6, dtype=torch.bool)),
@@ -126,7 +138,8 @@ def _meta(*shape, dtype=torch.float32):
         _meta(2, 4, 6, 256), _meta(2, 16, 2), (32, 48)),
     lambda: cuda_desc.sample_descriptors_dense_batch(
         _meta(2, 4, 6, 256), _meta(2, 4, 6, 2, dtype=torch.int32), (32, 48)),
-], ids=["pair1t", "nms", "cov", "match", "desc_sparse", "desc_dense"])
+], ids=["pair1t", "pair1", "nms", "cov", "match", "desc_sparse",
+        "desc_dense"])
 def test_wrappers_never_fall_back(call):
     before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
