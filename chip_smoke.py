@@ -1,48 +1,54 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (sp_orb_slam_tpu_torch).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels]
 
 Needs one NVIDIA Hopper card (H100), PyTorch for CUDA and `nvcc`; imports no
-JAX.  Phases, each of which raises on failure:
+JAX.  Phases, each of which raises on failure (`--kernels`: phases 1-2
+only, printing the kernel rows and no `ok` line):
 
 1. the card: `torch.cuda.get_device_name(0)` and `nvidia-smi`'s name and
    power limit; build every kernel from `sp_orb_slam_tpu_torch/csrc/` (one
-   `nvcc` per source, all at once) and print `-Xptxas -v`'s register and
-   shared-memory report;
+   `nvcc` per source, all at once) and print `-Xptxas -v`'s register,
+   shared-memory and spill report;
 2. kernels: each of the seven kernels against its plain PyTorch version
-   on the card at the main path's shapes (B=32, 752x480, K=896) with
-   seeded inputs, then CUDA-event times of the kernel, its plain version
-   and, where one PyTorch call computes the same function, that call (the
-   two first-conv-pair designs, pair1t and pair1, also against each
-   other);
+   on the card at the step's shapes (B=32, 752x480, K=896) with seeded
+   inputs (pair1 also at the fleet's B=8, with its persistent grid
+   checked), then CUDA-event times of the kernel, its plain version and,
+   where one PyTorch call computes the same function, that call; each
+   kernel's time and bound again at the batch of the path that launches
+   it (pair1 B=8, NMS / cov / desc_sparse / match B=1, pair1t and
+   desc_dense B=2); the two first-conv-pair designs, pair1 and pair1t,
+   against each other at B=32, 8 and 1;
 3. frontend paths: frames 0 and 2 of the rendered room through
    `make_extractor(..., device="cuda")` in bfloat16 with the trained
    weights (weights/sp_rendered.npz), then `match_init_batch`; keypoint,
-   match and ray-cast precision gates; the same in float32 with the kernels
-   and with the plain versions, which must agree; then the float32
-   extractor with desc_method "pallas_sparse" and "pallas" against
-   "gather";
-4. step time: the extract + init-match step of bench.py (B=32, bfloat16)
-   as frames/s over the wall time of 50 steps;
+   match and ray-cast precision gates, through pair1 (conv_packing
+   "auto") and again through pair1t (conv_packing="pair1t"); the same in
+   float32 with the kernels and with the plain versions, which must agree;
+   then the float32 extractor with desc_method "pallas_sparse" and
+   "pallas" against "gather";
+4. step time: the extract + init-match step of bench.py (B=32, bfloat16,
+   through pair1) as frames/s over the wall time of 50 steps;
 5. profile: the same step under torch.profiler, with the device's idle
    share and device time per step by layer and by kernel;
 6. SLAM: `System(cfg, params, device="cuda").spin(...)` over the 220 frames
    of the held-out rendered room at the default configuration (752x480,
    K=896, float32): gates on LOST frames, the tracked share and the Sim3
    ATE; ms per frame of `System.process` and of each `Timer` span over an
-   unprofiled spin of the first 215 frames; the device's idle share over
-   the last 5 frames, spun under torch.profiler;
-7. the fleet: `StreamFleet(cfg, 8, params, device="cuda")` in bfloat16 with
-   conv_packing="pair1" over 8 held-out rendered rooms (texture seeds
-   4-11, 100 frames each, the last stream ending after 90): per-stream
-   gates on LOST frames, the tracked share and the Sim3 ATE; launch gates
-   (pair1, nms, cov and desc_sparse once per tick, pair1t never, match at
-   least once per stream); ms per tick and the spans over the unprofiled
-   ticks, the idle share over the last 5 ticks profiled apart; then the
-   localization leg: stream 0's map saved, a new 8-stream fleet loads it in
-   localization mode and runs 40 ticks of seed 4's frames, gated on
-   relocalization, the share of ticks with a pose and the frozen map.
+   unprofiled spin of the first 217 frames; the device's idle share over
+   the last 3 frames, spun under torch.profiler;
+7. the fleet: `StreamFleet(cfg, 8, params, device="cuda")` in bfloat16
+   (conv_packing="auto": the pair1 kernel) over 8 held-out rendered rooms
+   (texture seeds 4-11, 100 frames each, the last stream ending after 90):
+   per-stream gates on LOST frames, the tracked share and the Sim3 ATE;
+   launch gates (pair1, nms, cov and desc_sparse once per tick, pair1t
+   never, match at least once per stream); ms per tick and the spans over
+   the unprofiled ticks, the idle share over the last 3 ticks profiled
+   apart; then the localization leg: stream 0's map saved, a new 8-stream
+   fleet loads it in localization mode and runs 40 ticks of seed 4's
+   frames, gated on relocalization, the share of ticks with a pose and the
+   frozen map.
 
 Every path is driven with the launch counters zeroed just before it and
 read just after, and fails if a kernel of that path never launched.  The
@@ -125,6 +131,17 @@ def bound_ms(nbytes, flops, peak):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def at_launch_shape(row, nb, call, bound, iters):
+    """Add to `row` the kernel's time and bound at the batch size `nb` of
+    the path that launches it (`call(nb)` runs the kernel on the first nb
+    rows of phase 2's inputs, `bound(nb)` is (ms, by) for those rows)."""
+    bms, by = bound(nb)
+    row.update(launch_batch=nb, launch_ms=cuda_ms(lambda: call(nb),
+                                                  iters=iters),
+               launch_bound_ms=bms, launch_bound_by=by)
+    return row
+
+
 def unit_rows(x):
     import torch
 
@@ -153,9 +170,12 @@ def pair_inputs(state, gen, dev):
         y = F.relu(F.conv2d(xb, wa_cl, wb[1], padding=1))
         return F.max_pool2d(F.relu(F.conv2d(y, wb_cl, wb[3], padding=1)), 2)
 
-    flops = 2.0 * B * H * W * 64 * (9 + 64 * 9)
-    nbytes = B * H * W * 4 + B * (H // 2) * (W // 2) * 64 * 2
-    return images, w, library, bound_ms(nbytes, flops, H100_BF16)
+    def bound(nb):
+        flops = 2.0 * nb * H * W * 64 * (9 + 64 * 9)
+        nbytes = nb * H * W * 4 + nb * (H // 2) * (W // 2) * 64 * 2
+        return bound_ms(nbytes, flops, H100_BF16)
+
+    return images, w, library, bound
 
 
 def check_pair1t(state, gen, dev):
@@ -163,7 +183,8 @@ def check_pair1t(state, gen, dev):
 
     from sp_orb_slam_tpu_torch.ops import cuda_pair1t
 
-    images, w, library, (bms, by) = pair_inputs(state, gen, dev)
+    images, w, library, bound = pair_inputs(state, gen, dev)
+    bms, by = bound(B)
     got = cuda_pair1t.fused_pair1t(images, *w)
     want = cuda_pair1t.fused_pair1t_plain(images, *w)
     torch.cuda.synchronize()
@@ -177,7 +198,7 @@ def check_pair1t(state, gen, dev):
         f"{same:.6f}, outside rtol=1e-2/atol=1e-3: {bad}")
     if got.shape != (B, H // 2, W // 2, 64) or bad:
         raise AssertionError("pair1t disagrees with its plain version")
-    return dict(
+    row = dict(
         name="pair1t", route="cuda",
         source="sp_orb_slam_tpu_torch/csrc/pair1t.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_pair1t.py:257",
@@ -186,48 +207,69 @@ def check_pair1t(state, gen, dev):
         plain_ms=cuda_ms(lambda: cuda_pair1t.fused_pair1t_plain(images, *w),
                          iters=5),
         bound_ms=bms, bound_by=by, library_ms=cuda_ms(library))
+    # its path: the bf16 frontend of phase 3 with conv_packing="pair1t"
+    return at_launch_shape(
+        row, 2, lambda nb: cuda_pair1t.fused_pair1t(images[:nb], *w), bound,
+        iters=20)
 
 
 def check_pair1(state, gen, dev):
-    """The row-pair kernel against its plain version (the stock bf16 pair)
-    with the tolerances of tests/test_pallas_pair1.py: bf16 operands and
-    f32 sums in another order (conv1a on the tensor cores), so a y1 value
-    may round one bf16 ulp apart and move an output by up to two ulps:
-    atol 0.03, rtol 0.02, more than 95 % bit-identical.  Times it beside
-    its plain version, the cuDNN pair and the pair1t kernel."""
+    """The persistent kernel against its plain version (the stock bf16
+    pair) at B=32 and at the fleet's B=8, with the tolerances of
+    tests/test_pallas_pair1.py: bf16 operands and f32 sums in another order
+    (conv1a on the tensor cores), so a y1 value may round one bf16 ulp
+    apart and move an output by up to two ulps: atol 0.03, rtol 0.02, more
+    than 95 % bit-identical.  The launch is a persistent grid of
+    min(tiles, SMs x resident blocks), at least one block an SM.  Times it
+    beside its plain version, the cuDNN pair and the pair1t kernel at
+    B=32, 8 and 1 (the step, the fleet, one image)."""
     import torch
 
     from sp_orb_slam_tpu_torch.ops import cuda_pair1, cuda_pair1t
 
-    images, w, library, (bms, by) = pair_inputs(state, gen, dev)
-    got = cuda_pair1.fused_pair1(images, *w)
-    want = cuda_pair1.fused_pair1_plain(images, *w)
-    other = cuda_pair1t.fused_pair1t(images, *w)
-    torch.cuda.synchronize()
-    g, t, o = got.float(), want.float(), other.float()
-    err = (g - t).abs()
-    bad = int((err > 0.02 * t.abs() + 0.03).sum())
-    same = float((g == t).float().mean())
-    same_t = float((g == o).float().mean())
-    blocks = cuda_pair1.blocks_per_sm(dev)
-    log(f"pair1: max_abs_err {float(err.max()):.3e}, bit-identical "
-        f"{same:.6f} (vs the pair1t kernel {same_t:.6f}), outside "
-        f"rtol=0.02/atol=0.03: {bad}; {blocks} blocks an SM")
-    if (got.shape != (B, H // 2, W // 2, 64) or bad or same <= 0.95
-            or blocks < 2):
-        raise AssertionError("pair1 disagrees with its plain version")
-    ms = cuda_ms(lambda: cuda_pair1.fused_pair1(images, *w))
-    pair1t_ms = cuda_ms(lambda: cuda_pair1t.fused_pair1t(images, *w))
-    log(f"pair1: {ms:.4f} ms, the pair1t kernel {pair1t_ms:.4f} ms on the "
-        f"same inputs")
-    return dict(
+    images, w, library, bound = pair_inputs(state, gen, dev)
+    bms, by = bound(B)
+    want = cuda_pair1.fused_pair1_plain(images, *w).float()
+    other = cuda_pair1t.fused_pair1t(images, *w).float()
+    errs = []
+    for nb in (B, 8):
+        g = cuda_pair1.fused_pair1(images[:nb], *w).float()
+        t, o = want[:nb], other[:nb]
+        err = (g - t).abs()
+        bad = int((err > 0.02 * t.abs() + 0.03).sum())
+        same = float((g == t).float().mean())
+        same_t = float((g == o).float().mean())
+        grid, blocks, sms = cuda_pair1.launch_grid(nb, H, W, dev)
+        tiles = cuda_pair1.tiles(nb, H, W)
+        log(f"pair1 B={nb}: max_abs_err {float(err.max()):.3e}, "
+            f"bit-identical {same:.6f} (vs the pair1t kernel {same_t:.6f}), "
+            f"outside rtol=0.02/atol=0.03: {bad}; grid {grid} for {tiles} "
+            f"tiles, {blocks} blocks an SM x {sms} SMs")
+        if (g.shape != (nb, H // 2, W // 2, 64) or bad or same <= 0.95
+                or blocks < 1 or grid != min(tiles, sms * blocks)):
+            raise AssertionError("pair1 disagrees with its plain version")
+        errs.append(float(err.max()))
+    times = {}
+    for nb in (B, 8, 1):
+        x = images[:nb]
+        times[nb] = (cuda_ms(lambda: cuda_pair1.fused_pair1(x, *w), iters=20),
+                     cuda_ms(lambda: cuda_pair1t.fused_pair1t(x, *w),
+                             iters=20))
+        log(f"pair1 B={nb}: {times[nb][0]:.4f} ms, the pair1t kernel "
+            f"{times[nb][1]:.4f} ms on the same inputs, bound "
+            f"{bound(nb)[0]:.4f} ms")
+    row = dict(
         name="pair1", route="cuda",
         source="sp_orb_slam_tpu_torch/csrc/pair1.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_pair1.py:250",
-        max_abs_err=float(err.max()), ms=ms,
+        max_abs_err=max(errs), ms=times[B][0],
         plain_ms=cuda_ms(lambda: cuda_pair1.fused_pair1_plain(images, *w),
                          iters=5),
         bound_ms=bms, bound_by=by, library_ms=cuda_ms(library))
+    # its path: the bf16 fleet, 8 streams
+    return at_launch_shape(
+        row, 8, lambda nb: cuda_pair1.fused_pair1(images[:nb], *w), bound,
+        iters=20)
 
 
 def check_nms(gen, dev):
@@ -257,9 +299,11 @@ def check_nms(gen, dev):
         f"{bool((got[0].cpu().numpy() == gold).all())}")
     if diff or not (got[0].cpu().numpy() == gold).all():
         raise AssertionError("nms disagrees with its plain version")
-    nbytes = B * hc * wc * (4 + 8 + 1 + 1)
-    bms, by = bound_ms(nbytes, 0.0, H100_F32)
-    return dict(
+    def bound(nb):
+        return bound_ms(nb * hc * wc * (4 + 8 + 1 + 1), 0.0, H100_F32)
+
+    bms, by = bound(B)
+    row = dict(
         name="nms", route="cuda", source="sp_orb_slam_tpu_torch/csrc/nms.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_nms.py:121",
         max_abs_err=float(diff),  # cells that differ (a bool mask)
@@ -267,6 +311,8 @@ def check_nms(gen, dev):
                    iters=50),
         plain_ms=cuda_ms(lambda: greedy_grid_nms(score, uv, valid), iters=5),
         bound_ms=bms, bound_by=by, library_ms=None)
+    return at_launch_shape(row, 1, lambda nb: cuda_nms.batched_grid_nms(
+        score[:nb], uv[:nb], valid[:nb]), bound, iters=50)
 
 
 def check_cov(gen, dev):
@@ -295,10 +341,13 @@ def check_cov(gen, dev):
         f"{resp_equal}")
     if err > 1e-5 or not resp_equal:
         raise AssertionError("cov disagrees with its plain version")
-    n_valid = int(valid.sum())
-    nbytes = n_valid * 17 * 17 * 4 + B * K * (8 + 1 + 20)
-    bms, by = bound_ms(nbytes, 0.0, H100_F32)
-    return dict(
+    def bound(nb):
+        n_valid = int(valid[:nb].sum())
+        nbytes = n_valid * 17 * 17 * 4 + nb * K * (8 + 1 + 20)
+        return bound_ms(nbytes, 0.0, H100_F32)
+
+    bms, by = bound(B)
+    row = dict(
         name="cov", route="cuda", source="sp_orb_slam_tpu_torch/csrc/cov.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_cov.py:189", max_abs_err=err,
         ms=cuda_ms(lambda: cuda_cov.batched_covariance(heat, uv, valid),
@@ -306,6 +355,8 @@ def check_cov(gen, dev):
         plain_ms=cuda_ms(lambda: keypoint_covariance(heat, uv, valid),
                          iters=5),
         bound_ms=bms, bound_by=by, library_ms=None)
+    return at_launch_shape(row, 1, lambda nb: cuda_cov.batched_covariance(
+        heat[:nb], uv[:nb], valid[:nb]), bound, iters=50)
 
 
 def match_disagreements(args, m12_k, m12_p):
@@ -370,10 +421,13 @@ def check_match(gen, dev):
         f"{int(n_k.sum())} / plain {int(n_p.sum())}")
     if excused != len(bad) or excused >= 1e-3 * n_rows:
         raise AssertionError("match disagrees with its plain version")
-    flops = 2.0 * B * K * K * D
-    nbytes = 2 * B * K * (D * 4 + 8 + 1) + B * K * 8 + B * 4
-    bms, by = bound_ms(nbytes, flops, H100_F32)
-    return dict(
+    def bound(nb):
+        flops = 2.0 * nb * K * K * D
+        nbytes = 2 * nb * K * (D * 4 + 8 + 1) + nb * K * 8 + nb * 4
+        return bound_ms(nbytes, flops, H100_F32)
+
+    bms, by = bound(B)
+    row = dict(
         name="match", route="cuda",
         source="sp_orb_slam_tpu_torch/csrc/match.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_match.py:137",
@@ -381,6 +435,8 @@ def check_match(gen, dev):
         ms=cuda_ms(lambda: cuda_match.match_init_batch(*args), iters=20),
         plain_ms=cuda_ms(lambda: init_match(*args), iters=5),
         bound_ms=bms, bound_by=by, library_ms=None)
+    return at_launch_shape(row, 1, lambda nb: cuda_match.match_init_batch(
+        *(a[:nb] for a in args)), bound, iters=50)
 
 
 def _unit_coarse(gen, dev):
@@ -417,12 +473,16 @@ def check_desc_sparse(gen, dev):
     r0 = gy * wc + gx
     rows = torch.stack([r0, r0 + 1, r0 + wc, r0 + wc + 1], -1)
     rows = rows + torch.arange(B, device=dev)[:, None, None] * hc * wc
-    n_rows = int(torch.unique(rows).numel())
-    nbytes = n_rows * 256 * 4 + B * K * 8 + B * K * 256 * 4
-    flops = B * K * 256 * 12.0   # 4 FMAs, the square-sum and the scale
-    bms, by = bound_ms(nbytes, flops, H100_F32)
-    log(f"desc_sparse: {n_rows} distinct corner rows of {B * hc * wc}, "
-        f"{nbytes / 1e6:.1f} MB")
+
+    def bound(nb):
+        n_rows = int(torch.unique(rows[:nb]).numel())
+        nbytes = n_rows * 256 * 4 + nb * K * 8 + nb * K * 256 * 4
+        flops = nb * K * 256 * 12.0  # 4 FMAs, the square-sum and the scale
+        log(f"desc_sparse B={nb}: {n_rows} distinct corner rows of "
+            f"{nb * hc * wc}, {nbytes / 1e6:.1f} MB")
+        return bound_ms(nbytes, flops, H100_F32)
+
+    bms, by = bound(B)
     nchw = coarse.permute(0, 3, 1, 2)
     grid = (uv / torch.tensor([W / 2, H / 2], device=dev) - 1)[:, None]
 
@@ -432,7 +492,7 @@ def check_desc_sparse(gen, dev):
 
     lib_err = float((library()[:, :, 0].permute(0, 2, 1) - want).abs().max())
     log(f"desc_sparse: grid_sample + normalize vs plain {lib_err:.3e}")
-    return dict(
+    row = dict(
         name="desc_sparse", route="cuda",
         source="sp_orb_slam_tpu_torch/csrc/desc_sparse.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_desc.py:272", max_abs_err=err,
@@ -441,6 +501,9 @@ def check_desc_sparse(gen, dev):
         plain_ms=cuda_ms(lambda: sample_descriptors(coarse, uv, (H, W)),
                          iters=10),
         bound_ms=bms, bound_by=by, library_ms=cuda_ms(library, iters=20))
+    return at_launch_shape(
+        row, 1, lambda nb: cuda_desc.sample_descriptors_sparse(
+            coarse[:nb], uv[:nb], (H, W)), bound, iters=50)
 
 
 def check_desc_dense(gen, dev):
@@ -465,9 +528,11 @@ def check_desc_dense(gen, dev):
     log(f"desc_dense: max_abs_err {err:.3e} (tolerance 1e-5)")
     if err > 1e-5 or not torch.isfinite(got).all():
         raise AssertionError("desc_dense disagrees with its plain version")
-    n = B * hc * wc
-    nbytes = n * 256 * 4 * 2 + n * 8
-    bms, by = bound_ms(nbytes, n * 256 * 12.0, H100_F32)
+    def bound(nb):
+        n = nb * hc * wc
+        return bound_ms(n * 256 * 4 * 2 + n * 8, n * 256 * 12.0, H100_F32)
+
+    bms, by = bound(B)
     nchw = coarse.permute(0, 3, 1, 2)
     grid = cand.float() / torch.tensor([W / 2, H / 2], device=dev) - 1
 
@@ -477,7 +542,7 @@ def check_desc_dense(gen, dev):
 
     lib_err = float((library().permute(0, 2, 3, 1) - want).abs().max())
     log(f"desc_dense: grid_sample + normalize vs plain {lib_err:.3e}")
-    return dict(
+    row = dict(
         name="desc_dense", route="cuda",
         source="sp_orb_slam_tpu_torch/csrc/desc_dense.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_desc.py:156", max_abs_err=err,
@@ -486,11 +551,15 @@ def check_desc_dense(gen, dev):
         plain_ms=cuda_ms(lambda: sample_descriptors_dense(coarse, cand,
                                                           (H, W)), iters=5),
         bound_ms=bms, bound_by=by, library_ms=cuda_ms(library, iters=20))
+    # its path: the frontend of phase 3 with desc_method="pallas", 2 images
+    return at_launch_shape(
+        row, 2, lambda nb: cuda_desc.sample_descriptors_dense_batch(
+            coarse[:nb], cand[:nb], (H, W)), bound, iters=50)
 
 
 # ---------------------------------------------------------------- phase 3
 
-FRONTEND_KERNELS = ("pair1t", "nms", "cov", "match", "desc_sparse")
+FRONTEND_KERNELS = ("pair1", "nms", "cov", "match", "desc_sparse")
 SLAM_KERNELS = ("nms", "cov", "match", "desc_sparse")
 
 
@@ -577,6 +646,14 @@ def main_path(state, dev):
     feats, m12 = run(bf)
     launches = read_launches("frontend (bf16)", FRONTEND_KERNELS)
     gates("bf16 kernels", feats, m12, ds, fa, fb)
+    # the other first-pair kernel, on request: conv_packing="pair1t"
+    bf_t = dataclasses.replace(bf, extractor=dataclasses.replace(
+        bf.extractor, conv_packing="pair1t"))
+    zero_launches()
+    feats_t, m12_t = run(bf_t)
+    pair1t_route = read_launches("frontend (bf16, conv_packing=pair1t)",
+                                 ("pair1t",) + FRONTEND_KERNELS[1:])
+    gates("bf16 kernels, pair1t", feats_t, m12_t, ds, fa, fb)
 
     # float32: kernels (auto on the card) vs the plain versions, and the
     # plain init matcher vs the kernel on the same features
@@ -621,7 +698,7 @@ def main_path(state, dev):
             f"desc max_abs_err {err:.3e}")
         if not same or err > 1e-5:
             raise AssertionError(f"desc_method={method} disagrees with gather")
-    return launches, routes["pallas"]
+    return launches, pair1t_route, routes["pallas"]
 
 
 # ---------------------------------------------------------------- phase 4
@@ -704,6 +781,7 @@ def step_fps(step):
 
 # kernel-name fragments -> the layer of the step that launches them
 GROUPS = (
+    ("pair1 kernel", ("pair1_kernel",)),
     ("pair1t kernel", ("pair1t_kernel",)),
     ("match kernels", ("rows_kernel", "finalize_kernel")),
     ("nms kernel", ("nms_kernel",)),
@@ -765,7 +843,7 @@ def profile_step(step, carry):
 # ---------------------------------------------------------------- phase 6
 
 SLAM_FRAMES = 220
-PROFILE_FRAMES = 5    # the spin's last frames, profiled apart from the rest
+PROFILE_FRAMES = 3    # the spin's last frames, profiled apart from the rest
 SLAM_ROWS = 12        # kernel and CPU-op rows printed
 
 
@@ -896,7 +974,7 @@ FLEET_SEEDS = tuple(range(4, 12))  # held-out rooms (training used 0-3)
 FLEET_FRAMES = 100    # ticks; each stream runs the first frames of the
 #                       SLAM_FRAMES-frame trajectory (phase 6's)
 FLEET_SHORT = 90      # the last stream ends here: idle rows for 10 ticks
-FLEET_PROFILE = 5     # the last ticks, profiled apart from the rest
+FLEET_PROFILE = 3     # the last ticks, profiled apart from the rest
 FLEET_TRACKED = 0.75  # tracked share gate of each stream
 LOC_TICKS = 40        # localization leg: stream i runs frames 20+2i ..
 FLEET_KERNELS = ("pair1", "nms", "cov", "desc_sparse", "match")
@@ -906,12 +984,12 @@ FLEET_SPANS = ("fleet/features", "fleet/dust", "fleet/coarse",
 
 def fleet_config():
     """The fleet's operating point: the default configuration with the
-    bfloat16 frontend through the row-pair first-conv-pair kernel."""
+    bfloat16 frontend, whose conv_packing="auto" runs the pair1 kernel."""
     from sp_orb_slam_tpu_torch.config import Config
 
     cfg = Config()
     return dataclasses.replace(cfg, extractor=dataclasses.replace(
-        cfg.extractor, dtype="bfloat16", conv_packing="pair1"))
+        cfg.extractor, dtype="bfloat16"))
 
 
 def span_stats(v):
@@ -1088,8 +1166,12 @@ def localization_leg(fleet, state, dev, smi, frames, cfg):
                              "ticks, the map frozen)")
 
 
-def main() -> int:
+def main(argv) -> int:
     t_start = time.perf_counter()
+    kernels_only = argv == ["--kernels"]
+    if argv and not kernels_only:
+        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -1123,17 +1205,18 @@ def main() -> int:
                                          or "Compiling" in line):
                 log(f"  {kname}: {line.strip()}")
 
-    # data is set-up: render phase 6's room and phase 7's rooms up front
-    t0 = time.perf_counter()
-    # phase 6's room 5 is one of phase 7's: render its longer run once
-    rooms = render_all({**{s: (SLAM_FRAMES, FLEET_FRAMES)
-                           for s in FLEET_SEEDS},
-                        5: (SLAM_FRAMES, SLAM_FRAMES)})
-    gt = {s: RenderedDataset(Config(), n_frames=SLAM_FRAMES, seed=s,
-                             noise_seed=0).gt_trajectory()
-          for s in FLEET_SEEDS}
-    log(f"rendered {sum(map(len, rooms.values()))} frames in "
-        f"{time.perf_counter() - t0:.1f} s")
+    if not kernels_only:
+        # data is set-up: render phase 6's room and phase 7's rooms up front
+        t0 = time.perf_counter()
+        # phase 6's room 5 is one of phase 7's: render its longer run once
+        rooms = render_all({**{s: (SLAM_FRAMES, FLEET_FRAMES)
+                               for s in FLEET_SEEDS},
+                            5: (SLAM_FRAMES, SLAM_FRAMES)})
+        gt = {s: RenderedDataset(Config(), n_frames=SLAM_FRAMES, seed=s,
+                                 noise_seed=0).gt_trajectory()
+              for s in FLEET_SEEDS}
+        log(f"rendered {sum(map(len, rooms.values()))} frames in "
+            f"{time.perf_counter() - t0:.1f} s")
 
     state = load_checkpoint(os.path.join(HERE, "weights", "sp_rendered.npz"))
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1141,16 +1224,31 @@ def main() -> int:
             check_nms(gen, dev),
             check_cov(gen, dev), check_match(gen, dev),
             check_desc_sparse(gen, dev), check_desc_dense(gen, dev)]
-    front, dense_route = main_path(state, dev)
+    if kernels_only:
+        keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "launch_batch", "launch_ms",
+                "launch_bound_ms", "launch_bound_by")
+        log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+        log(f"chip_smoke --kernels: {time.perf_counter() - t_start:.1f} s "
+            f"in all | {smi}")
+        return 0
+    def stamp(phase):  # elapsed time against the run's time limit
+        log(f"chip_smoke: {phase} done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
+    stamp("kernels")
+    front, pair1t_route, dense_route = main_path(state, dev)
     step = make_step(state, dev)
     stats, carry = step_fps(step)
     log(f"step: {json.dumps(stats)} | {smi}")
     log("\n".join(profile_step(step, carry)))
+    stamp("frontend and step")
     slam = slam_phase(state, dev, smi, rooms[5])
+    stamp("SLAM")
     fleet = fleet_phase(state, dev, smi, rooms, gt)
     # each kernel's launches on the path that runs it: the SLAM path for
-    # its kernels, the bf16 frontend for pair1t, desc_method="pallas" for
-    # desc_dense, the bf16 fleet for pair1
+    # its kernels, the bf16 frontend with conv_packing="pair1t" for pair1t,
+    # desc_method="pallas" for desc_dense, the bf16 fleet for pair1
     for r in rows:
         if r["name"] == "pair1":
             r["path"], r["launches"] = "fleet_bf16", fleet["pair1"]
@@ -1160,10 +1258,12 @@ def main() -> int:
             r["path"], r["launches"] = "frontend_pallas", dense_route[
                 "desc_dense"]
         else:
-            r["path"], r["launches"] = "frontend_bf16", front[r["name"]]
+            r["path"], r["launches"] = ("frontend_bf16_pair1t",
+                                        pair1t_route["pair1t"])
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "launch_batch", "launch_ms", "launch_bound_ms",
+            "launch_bound_by")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(f"card: {smi}")
@@ -1174,4 +1274,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -270,11 +270,12 @@ class ExtractorConfig:
     #                            candidate (kernel / plain stencil) and pick
     #                            each keypoint's row
     conv_packing: str = "auto"  # "auto" = the fused first-conv-pair kernel
-    #                             ("pair1t", ops/cuda_pair1t.py) on the
-    #                             bfloat16 path on a CUDA device, "none"
-    #                             (cuDNN / CPU convs) elsewhere; "pair1"
-    #                             (ops/cuda_pair1.py, the row-pair design
-    #                             of the same function) on request
+    #                             ("pair1", ops/cuda_pair1.py, the
+    #                             persistent design) on the bfloat16 path
+    #                             on a CUDA device, "none" (cuDNN / CPU
+    #                             convs) elsewhere; "pair1t"
+    #                             (ops/cuda_pair1t.py, the transposed
+    #                             design of the same function) on request
     dtype: str = "float32"     # compute dtype of the conv net ("bfloat16" for speed)
 
 

@@ -41,6 +41,18 @@ class Features(NamedTuple):
     count: torch.Tensor       # (B,) int32
 
 
+def resolve_conv_packing(conv_packing: str, compute_dtype: torch.dtype,
+                         device: torch.device, H: int, W: int) -> str:
+    """The first conv pair's route: "auto" is the persistent pair1 kernel
+    on the bfloat16 path on a CUDA device where it applies (H % 8 == 0,
+    W % 2 == 0), else "none"; any other value is returned as given."""
+    if conv_packing != "auto":
+        return conv_packing
+    return ("pair1" if (compute_dtype == torch.bfloat16
+                        and device.type == "cuda" and H % 8 == 0
+                        and W % 2 == 0) else "none")
+
+
 def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
             max_keypoints: int, conf_thresh: float = 0.007,
             nms_dist: int = 4, border: int = 8, nms_iters: int = 16,
@@ -53,10 +65,11 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
 
     Method choices: `nms_method` "cuda" (kernel) or "xla" (plain fixed
     point), `cov_method` "cuda" or "windowed" (plain fill), `conv_packing`
-    "pair1t" or "pair1" (the two fused first-pair kernels, bfloat16,
+    "pair1" or "pair1t" (the two fused first-pair kernels, bfloat16,
     H % 8 == 0 and W % 2 == 0) or "none"; "auto" picks the kernels on a
-    CUDA device (pair1t when bfloat16, H % 8 == 0 and W % 2 == 0) and the
-    plain versions on the CPU.  `desc_method`:
+    CUDA device (pair1, the persistent kernel, faster than pair1t on the
+    H100 at B=1, 8 and 32 (PERF.md), when bfloat16, H % 8 == 0 and
+    W % 2 == 0) and the plain versions on the CPU.  `desc_method`:
     "gather" (plain 4-corner sampling at each keypoint), "pallas_sparse"
     (the sparse sampling kernel), "dense" (plain 9-tap stencil at every
     cell's candidate, then each keypoint's own cell row), "pallas" (the
@@ -69,10 +82,8 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
                          f"({border})")
     B, H, W = images.shape
     on_cuda = images.device.type == "cuda"
-    if conv_packing == "auto":
-        conv_packing = ("pair1t" if (compute_dtype == torch.bfloat16
-                                     and on_cuda and H % 8 == 0
-                                     and W % 2 == 0) else "none")
+    conv_packing = resolve_conv_packing(conv_packing, compute_dtype,
+                                        images.device, H, W)
     if cov_method == "auto":
         cov_method = "cuda" if on_cuda else "windowed"
     if nms_method == "auto":

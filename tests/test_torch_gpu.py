@@ -50,12 +50,16 @@ def test_pair1t_kernel(cuda, gen, shape):
     assert (got == want).float().mean() > 0.99
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 48, 200), (3, 480, 752)])
+@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 48, 200), (3, 480, 752),
+                                   (8, 480, 752), (1, 480, 640)])
 def test_pair1_kernel(cuda, gen, shape):
-    """The row-pair kernel against its plain version (the tolerances of
+    """The persistent kernel against its plain version (the tolerances of
     tests/test_pallas_pair1.py: f32 sums in another order, atol 0.03 /
     rtol 0.02, > 95 % bit-identical) and against the pair1t kernel, which
-    computes the same function; two blocks fit on an SM."""
+    computes the same function.  Shapes: the fleet's (8, 480, 752), whose
+    right column band is ragged (752 = 11 x 64 + 48), 640 columns (whole
+    bands) and 200 (a ragged band of 8).  At least one block fits on an SM
+    and the grid is min(tiles, SMs x blocks)."""
     B, H, W = shape
     images = torch.rand(shape, generator=gen, device=cuda)
     w = [torch.randn(s, generator=gen, device=cuda) * sc
@@ -71,7 +75,25 @@ def test_pair1_kernel(cuda, gen, shape):
     for ref in (want, other):
         assert ((got - ref).abs() <= 0.02 * ref.abs() + 0.03).all()
         assert (got == ref).float().mean() > 0.95
-    assert cuda_pair1.blocks_per_sm(cuda) == 2
+    grid, blocks, sms = cuda_pair1.launch_grid(B, H, W, cuda)
+    assert blocks >= 1
+    assert grid == min(cuda_pair1.tiles(B, H, W), sms * blocks)
+
+
+def test_pair1_packs_once(cuda, gen):
+    """Repeated calls with the same weights pack them once; the card's
+    packing of conv1b's weights is the CPU's, bit for bit."""
+    images = torch.rand((1, 48, 200), generator=gen, device=cuda)
+    w = [torch.randn(s, generator=gen, device=cuda) * sc
+         for s, sc in (((64, 1, 3, 3), 0.5), ((64,), 0.1),
+                       ((64, 64, 3, 3), 0.05), ((64,), 0.1))]
+    cuda_pair1.fused_pair1(images, *w)
+    n = cuda_pair1.packs
+    for _ in range(3):
+        cuda_pair1.fused_pair1(images, *w)
+    assert cuda_pair1.packs == n
+    wb = cuda_pair1.packed_weights(*w, cuda)[2]
+    assert torch.equal(wb.cpu(), cuda_pair1.pack_w1b(w[2].cpu()))
 
 
 @pytest.mark.parametrize("iters", [1, 4, 16])

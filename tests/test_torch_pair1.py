@@ -1,6 +1,7 @@
-"""Port parity of the row-pair first conv pair (conv_packing="pair1",
+"""Port parity of the first conv pair's pair1 route (conv_packing="pair1",
 sp_orb_slam_tpu_torch/ops/cuda_pair1.py) against the JAX package's Pallas
-kernel `fused_pair1` in interpret mode, on the CPU, in bfloat16.
+kernel `fused_pair1` in interpret mode, on the CPU, in bfloat16; the
+wrapper's weight packing and the `auto` choice.
 
 A CPU tensor takes the wrapper's plain version, the stock bf16 pair.  The
 tolerances are tests/test_pallas_pair1.py:37-41's: both sides use bf16
@@ -67,3 +68,77 @@ def test_forward_pair1_matches_jax_forward():
     np.testing.assert_allclose(t.score.numpy(), np.asarray(j.score),
                                atol=0.02)
     assert (t.cand_uv.numpy() == np.asarray(j.cand_uv)).mean() > 0.98
+
+
+def _unpack_w1b(packed):
+    """The inverse of cuda_pair1.pack_w1b: (9, 64, 64) -> OIHW."""
+    idx = cuda_pair1.swizzle_index().expand(9, 64, 64)
+    wb = torch.empty_like(packed).scatter_(2, idx, packed)
+    return wb.reshape(3, 3, 64, 64).permute(2, 3, 0, 1)
+
+
+def test_pair1_weight_packing_roundtrips():
+    """The kernel's conv1b layout, [tap = dy*3+dx][co][ci] bf16 with the
+    16-byte chunk j of each co row stored at chunk j ^ (co % 8), unpacks to
+    the OIHW weights exactly; conv1a packs as [co][tap] with taps 9..15
+    zero."""
+    rng = np.random.default_rng(4)
+    w1b = torch.from_numpy(rng.standard_normal((64, 64, 3, 3), np.float32))
+    w1a = torch.from_numpy(rng.standard_normal((64, 1, 3, 3), np.float32))
+    packed = cuda_pair1.pack_w1b(w1b)
+    assert packed.shape == (9, 64, 64) and packed.dtype == torch.bfloat16
+    assert torch.equal(_unpack_w1b(packed), w1b.to(torch.bfloat16))
+    # the swizzle itself: chunk j of row (tap, co) sits at chunk j ^ (co % 8)
+    ref = w1b.to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, 64, 8, 8)
+    for co in (0, 5, 13, 63):
+        for j in range(8):
+            assert torch.equal(packed[:, co, 8 * (j ^ (co % 8)):][:, :8],
+                               ref[:, co, j])
+    wa = cuda_pair1.pack_w1a(w1a)
+    assert torch.equal(wa[:, :9], w1a.to(torch.bfloat16).reshape(64, 9))
+    assert not wa[:, 9:].any()
+
+
+def test_pair1_packing_is_cached():
+    """One packing for repeated calls with the same weight tensors; a new
+    tensor, or an in-place update of a cached one, packs anew."""
+    rng = np.random.default_rng(5)
+    w = [torch.from_numpy(rng.standard_normal(s, np.float32))
+         for s in ((64, 1, 3, 3), (64,), (64, 64, 3, 3), (64,))]
+    cpu = torch.device("cpu")
+    first = cuda_pair1.packed_weights(*w, cpu)
+    n = cuda_pair1.packs
+    for _ in range(3):
+        assert cuda_pair1.packed_weights(*w, cpu) is first
+    assert cuda_pair1.packs == n
+    w[2].mul_(2.0)
+    again = cuda_pair1.packed_weights(*w, cpu)
+    assert cuda_pair1.packs == n + 1 and again is not first
+    assert torch.equal(_unpack_w1b(again[2]),
+                       w[2].to(torch.bfloat16))
+    other = [t.clone() for t in w]
+    cuda_pair1.packed_weights(*other, cpu)
+    assert cuda_pair1.packs == n + 2
+    with torch.inference_mode():
+        frozen = [t.clone() for t in w]
+    cuda_pair1.packed_weights(*frozen, cpu)
+    cuda_pair1.packed_weights(*frozen, cpu)
+    assert cuda_pair1.packs == n + 4
+
+
+@pytest.mark.parametrize("dtype,device,hw,want", [
+    (torch.bfloat16, "cuda", (480, 752), "pair1"),
+    (torch.bfloat16, "cuda", (480, 640), "pair1"),
+    (torch.bfloat16, "cuda", (484, 752), "none"),
+    (torch.float32, "cuda", (480, 752), "none"),
+    (torch.bfloat16, "cpu", (480, 752), "none"),
+])
+def test_auto_conv_packing_takes_pair1(dtype, device, hw, want):
+    """conv_packing="auto" takes the persistent pair1 kernel on the bf16
+    CUDA path where its shape rule holds, and the plain convs elsewhere;
+    an explicit choice is kept."""
+    from sp_orb_slam_tpu_torch.extractor import resolve_conv_packing
+
+    dev = torch.device(device)
+    assert resolve_conv_packing("auto", dtype, dev, *hw) == want
+    assert resolve_conv_packing("pair1t", dtype, dev, *hw) == "pair1t"
