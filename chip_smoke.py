@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (sp_orb_slam_tpu_torch).
 
-    python3 chip_smoke.py [--kernels]
+    python3 chip_smoke.py [--kernels [KERNEL ...]]
 
 Needs one NVIDIA Hopper card (H100), PyTorch for CUDA and `nvcc`; imports no
 JAX.  Phases, each of which raises on failure (`--kernels`: phases 1-2
-only, printing the kernel rows and no `ok` line):
+only, for the named kernels or all seven, printing the kernel rows and no
+`ok` line):
 
 1. the card: `torch.cuda.get_device_name(0)` and `nvidia-smi`'s name and
    power limit; build every kernel from `sp_orb_slam_tpu_torch/csrc/` (one
@@ -14,12 +15,16 @@ only, printing the kernel rows and no `ok` line):
 2. kernels: each of the seven kernels against its plain PyTorch version
    on the card at the step's shapes (B=32, 752x480, K=896) with seeded
    inputs (pair1 also at the fleet's B=8, with its persistent grid
-   checked), then CUDA-event times of the kernel, its plain version and,
-   where one PyTorch call computes the same function, that call; each
-   kernel's time and bound again at the batch of the path that launches
-   it (pair1 B=8, NMS / cov / desc_sparse / match B=1, pair1t and
-   desc_dense B=2); the two first-conv-pair designs, pair1 and pair1t,
-   against each other at B=32, 8 and 1;
+   checked; match also at B=1), then CUDA-event times of the kernel over
+   back-to-back calls, its plain version and, where one PyTorch call
+   computes the same function, that call; the kernel's device time alone
+   (torch.profiler's device events) and its host µs a call (each call
+   waited for); each kernel's times and bound again at the batch of the
+   path that launches it (pair1 B=8, NMS / cov / desc_sparse / match B=1,
+   pair1t and desc_dense B=2); the two first-conv-pair designs, pair1 and
+   pair1t, against each other at B=32, 8 and 1; match beside torch.bmm of
+   the same descriptors (the product alone); then a table of the times
+   with the launch floor, an empty kernel timed the same way;
 3. frontend paths: frames 0 and 2 of the rendered room through
    `make_extractor(..., device="cuda")` in bfloat16 with the trained
    weights (weights/sp_rendered.npz), then `match_init_batch`; keypoint,
@@ -84,7 +89,9 @@ def log(*a):
 
 
 def cuda_ms(fn, iters=10, warmup=2):
-    """Mean device time of fn() in ms over `iters` calls (CUDA events)."""
+    """Time of fn() in ms a call over `iters` back-to-back calls, between
+    two CUDA events: the device time, or the host's time to issue a call
+    where that is longer (a small batch)."""
     import torch
 
     for _ in range(warmup):
@@ -97,6 +104,75 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def event_device_us(ev):
+    """Device µs of one key_averages() row."""
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0))
+
+
+def device_split(fn, iters=20):
+    """Device time of fn() alone in ms a call, by device event name: the
+    durations of the kernels and memsets it launches, from torch.profiler's
+    device events over `iters` calls after one warm-up call; no host time
+    and no gap between launches counts.  A window in which some device
+    event did not come back a multiple of `iters` times (the profiler can
+    drop events) is taken again."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [ev for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and not ev.key.startswith("ProfilerStep")]
+        split = {ev.key: event_device_us(ev) / 1e3 / iters for ev in rows}
+        if sum(split.values()) > 0 and all(ev.count % iters == 0
+                                           for ev in rows):
+            return split
+    raise AssertionError("profiler: device events missing in 3 windows")
+
+
+def short_name(kernel_name):
+    """A profiler kernel name without its namespace, return type and
+    arguments."""
+    name = kernel_name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ").strip()
+
+
+def device_ms(fn, iters=20):
+    """Device time of fn() alone in ms a call (device_split, summed)."""
+    return sum(device_split(fn, iters).values())
+
+
+def host_us(fn, iters=50):
+    """Wall µs a call when each call is waited for (fn(), then synchronize,
+    `iters` times after one warm-up call): what one call costs a caller
+    that reads its result, host work and launch included."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / iters
+
+
+def kernel_times(fn, iters):
+    """ms (CUDA events over back-to-back calls), device_ms (device time
+    alone) and host_us (each call waited for) of one wrapper call."""
+    return dict(ms=cuda_ms(fn, iters=iters), device_ms=device_ms(fn),
+                host_us=host_us(fn))
 
 
 def render_frames(seed, n_total, idx):
@@ -132,14 +208,48 @@ def bound_ms(nbytes, flops, peak):
 
 
 def at_launch_shape(row, nb, call, bound, iters):
-    """Add to `row` the kernel's time and bound at the batch size `nb` of
+    """Add to `row` the kernel's times and bound at the batch size `nb` of
     the path that launches it (`call(nb)` runs the kernel on the first nb
     rows of phase 2's inputs, `bound(nb)` is (ms, by) for those rows)."""
     bms, by = bound(nb)
-    row.update(launch_batch=nb, launch_ms=cuda_ms(lambda: call(nb),
-                                                  iters=iters),
-               launch_bound_ms=bms, launch_bound_by=by)
+    times = kernel_times(lambda: call(nb), iters)
+    row.update(launch_batch=nb, launch_bound_ms=bms, launch_bound_by=by,
+               **{f"launch_{k}": v for k, v in times.items()})
     return row
+
+
+def launch_floor(dev):
+    """The empty kernel of csrc/noop.cu through `_build.launch`, timed as
+    the kernels are: the share of a small batch's time that no kernel
+    body can remove."""
+    from sp_orb_slam_tpu_torch.ops import _build
+
+    return kernel_times(lambda: _build.noop(dev), 50)
+
+
+ROW_KEYS = ("name", "max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "launch_batch",
+            "launch_ms", "launch_device_ms", "launch_host_us",
+            "launch_bound_ms", "launch_bound_by")
+
+
+def kernel_table(rows, floor, smi):
+    """Phase 2's table: each kernel's times at B=32 and at its path's batch
+    (ms: CUDA events over back-to-back calls; dev: device time alone;
+    host µs: each call waited for), beside its bound, and the floor."""
+    lines = [f"kernel times | {smi}",
+             f"{'kernel':<12} {'ms':>8} {'dev ms':>8} {'host us':>8} "
+             f"{'bound':>8} | {'B':>2} {'ms':>8} {'dev ms':>8} "
+             f"{'host us':>8} {'bound':>8}"]
+    lines += [f"{r['name']:<12} {r['ms']:8.4f} {r['device_ms']:8.4f} "
+              f"{r['host_us']:8.1f} {r['bound_ms']:8.5f} | "
+              f"{r['launch_batch']:>2} {r['launch_ms']:8.4f} "
+              f"{r['launch_device_ms']:8.4f} {r['launch_host_us']:8.1f} "
+              f"{r['launch_bound_ms']:8.5f}" for r in rows]
+    lines.append(f"{'noop floor':<12} {floor['ms']:8.4f} "
+                 f"{floor['device_ms']:8.4f} {floor['host_us']:8.1f} "
+                 f"(the empty kernel through _build.launch)")
+    return lines
 
 
 def unit_rows(x):
@@ -203,7 +313,7 @@ def check_pair1t(state, gen, dev):
         source="sp_orb_slam_tpu_torch/csrc/pair1t.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_pair1t.py:257",
         max_abs_err=float(err.max()),
-        ms=cuda_ms(lambda: cuda_pair1t.fused_pair1t(images, *w)),
+        **kernel_times(lambda: cuda_pair1t.fused_pair1t(images, *w), 10),
         plain_ms=cuda_ms(lambda: cuda_pair1t.fused_pair1t_plain(images, *w),
                          iters=5),
         bound_ms=bms, bound_by=by, library_ms=cuda_ms(library))
@@ -262,7 +372,8 @@ def check_pair1(state, gen, dev):
         name="pair1", route="cuda",
         source="sp_orb_slam_tpu_torch/csrc/pair1.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_pair1.py:250",
-        max_abs_err=max(errs), ms=times[B][0],
+        max_abs_err=max(errs),
+        **kernel_times(lambda: cuda_pair1.fused_pair1(images, *w), 20),
         plain_ms=cuda_ms(lambda: cuda_pair1.fused_pair1_plain(images, *w),
                          iters=5),
         bound_ms=bms, bound_by=by, library_ms=cuda_ms(library))
@@ -307,8 +418,8 @@ def check_nms(gen, dev):
         name="nms", route="cuda", source="sp_orb_slam_tpu_torch/csrc/nms.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_nms.py:121",
         max_abs_err=float(diff),  # cells that differ (a bool mask)
-        ms=cuda_ms(lambda: cuda_nms.batched_grid_nms(score, uv, valid),
-                   iters=50),
+        **kernel_times(lambda: cuda_nms.batched_grid_nms(score, uv, valid),
+                       50),
         plain_ms=cuda_ms(lambda: greedy_grid_nms(score, uv, valid), iters=5),
         bound_ms=bms, bound_by=by, library_ms=None)
     return at_launch_shape(row, 1, lambda nb: cuda_nms.batched_grid_nms(
@@ -350,8 +461,8 @@ def check_cov(gen, dev):
     row = dict(
         name="cov", route="cuda", source="sp_orb_slam_tpu_torch/csrc/cov.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_cov.py:189", max_abs_err=err,
-        ms=cuda_ms(lambda: cuda_cov.batched_covariance(heat, uv, valid),
-                   iters=50),
+        **kernel_times(lambda: cuda_cov.batched_covariance(heat, uv, valid),
+                       50),
         plain_ms=cuda_ms(lambda: keypoint_covariance(heat, uv, valid),
                          iters=5),
         bound_ms=bms, bound_by=by, library_ms=None)
@@ -393,6 +504,7 @@ def check_match(gen, dev):
 
     from sp_orb_slam_tpu_torch.ops import cuda_match
     from sp_orb_slam_tpu_torch.ops.matching import init_match
+    from sp_orb_slam_tpu_torch.utils.precision import full_f32
 
     D = 256
     d1 = unit_rows(torch.randn((B, K, D), generator=gen, device=dev))
@@ -421,6 +533,13 @@ def check_match(gen, dev):
         f"{int(n_k.sum())} / plain {int(n_p.sum())}")
     if excused != len(bad) or excused >= 1e-3 * n_rows:
         raise AssertionError("match disagrees with its plain version")
+    # the SLAM init's batch of one (another tile size) against the same rows
+    one = tuple(a[:1] for a in args)
+    m12_1 = cuda_match.match_init_batch(*one)[0]
+    bad1, excused1 = match_disagreements(one, m12_1, m12_p[:1])
+    log(f"match B=1: {len(bad1)} rows differ, {excused1} near-ties")
+    if excused1 != len(bad1):
+        raise AssertionError("match at B=1 disagrees with its plain version")
     def bound(nb):
         flops = 2.0 * nb * K * K * D
         nbytes = 2 * nb * K * (D * 4 + 8 + 1) + nb * K * 8 + nb * 4
@@ -432,11 +551,31 @@ def check_match(gen, dev):
         source="sp_orb_slam_tpu_torch/csrc/match.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_match.py:137",
         max_abs_err=float(len(bad)),  # rows whose match index differs
-        ms=cuda_ms(lambda: cuda_match.match_init_batch(*args), iters=20),
+        **kernel_times(lambda: cuda_match.match_init_batch(*args), 20),
         plain_ms=cuda_ms(lambda: init_match(*args), iters=5),
         bound_ms=bms, bound_by=by, library_ms=None)
-    return at_launch_shape(row, 1, lambda nb: cuda_match.match_init_batch(
+    row = at_launch_shape(row, 1, lambda nb: cuda_match.match_init_batch(
         *(a[:nb] for a in args)), bound, iters=50)
+    # a partial yardstick: a tuned f32 product of the same descriptor sets
+    # (TF32 off), the product alone and not the whole function
+    d2t = d2.transpose(1, 2)
+    with full_f32():
+        prod = {nb: kernel_times(lambda: torch.bmm(d1[:nb], d2t[:nb]), 20)
+                for nb in (B, 1)}
+    for nb in (B, 1):
+        split = device_split(lambda: cuda_match.match_init_batch(
+            *(a[:nb] for a in args)))
+        log(f"match B={nb} device time by kernel: " + ", ".join(
+            f"{short_name(k)} {v * 1e3:.1f} us"
+            for k, v in sorted(split.items(), key=lambda x: -x[1])))
+    log("match yardstick, torch.bmm in f32 (TF32 off), the product alone "
+        "and not the whole function: " + "; ".join(
+            f"B={nb}: {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms"
+            for nb, t in prod.items()) + "; the match kernel: " +
+        f"B={B}: {row['ms']:.4f} ms, device {row['device_ms']:.4f} ms; "
+        f"B=1: {row['launch_ms']:.4f} ms, device "
+        f"{row['launch_device_ms']:.4f} ms")
+    return row
 
 
 def _unit_coarse(gen, dev):
@@ -496,8 +635,8 @@ def check_desc_sparse(gen, dev):
         name="desc_sparse", route="cuda",
         source="sp_orb_slam_tpu_torch/csrc/desc_sparse.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_desc.py:272", max_abs_err=err,
-        ms=cuda_ms(lambda: cuda_desc.sample_descriptors_sparse(
-            coarse, uv, (H, W)), iters=50),
+        **kernel_times(lambda: cuda_desc.sample_descriptors_sparse(
+            coarse, uv, (H, W)), 50),
         plain_ms=cuda_ms(lambda: sample_descriptors(coarse, uv, (H, W)),
                          iters=10),
         bound_ms=bms, bound_by=by, library_ms=cuda_ms(library, iters=20))
@@ -546,8 +685,8 @@ def check_desc_dense(gen, dev):
         name="desc_dense", route="cuda",
         source="sp_orb_slam_tpu_torch/csrc/desc_dense.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_desc.py:156", max_abs_err=err,
-        ms=cuda_ms(lambda: cuda_desc.sample_descriptors_dense_batch(
-            coarse, cand, (H, W)), iters=50),
+        **kernel_times(lambda: cuda_desc.sample_descriptors_dense_batch(
+            coarse, cand, (H, W)), 50),
         plain_ms=cuda_ms(lambda: sample_descriptors_dense(coarse, cand,
                                                           (H, W)), iters=5),
         bound_ms=bms, bound_by=by, library_ms=cuda_ms(library, iters=20))
@@ -779,16 +918,27 @@ def step_fps(step):
 
 # ---------------------------------------------------------------- phase 5
 
-# kernel-name fragments -> the layer of the step that launches them
+# kernel-name fragments -> the source (csrc/<name>.cu) or the library that
+# launches them; a kernel falls in the first group one of whose fragments
+# its name holds, else in OTHER
 GROUPS = (
-    ("pair1 kernel", ("pair1_kernel",)),
-    ("pair1t kernel", ("pair1t_kernel",)),
-    ("match kernels", ("rows_kernel", "finalize_kernel")),
-    ("nms kernel", ("nms_kernel",)),
-    ("cov kernel", ("cov_kernel",)),
-    ("desc kernel", ("desc_sparse_kernel", "desc_dense_kernel")),
+    ("pair1", ("pair1_kernel",)),
+    ("pair1t", ("pair1t_kernel",)),
+    ("match", ("match_tile_kernel", "match_merge_kernel",
+               "match_finalize_kernel")),
+    ("nms", ("nms_kernel",)),
+    ("cov", ("cov_kernel",)),
+    ("desc_sparse", ("desc_sparse_kernel",)),
+    ("desc_dense", ("desc_dense_kernel",)),
+    ("noop", ("noop_kernel",)),
     ("cuDNN / cuBLAS", ("xmma", "cutlass", "nvjet", "cudnn", "gemm")),
 )
+OTHER = "other PyTorch kernels"
+
+
+def group_of(kernel_name):
+    return next((g for g, keys in GROUPS
+                 if any(k in kernel_name for k in keys)), OTHER)
 
 
 def profile_step(step, carry):
@@ -813,8 +963,7 @@ def profile_step(step, carry):
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
+        dev_us = event_device_us(ev)
         if dev_us > 0:
             rows.append((dev_us / 1e3 / PROFILE_STEPS,
                          ev.count // PROFILE_STEPS, ev.key))
@@ -824,8 +973,7 @@ def profile_step(step, carry):
     busy = sum(r[0] for r in rows)
     groups = {}
     for ms, _, name in rows:
-        g = next((g for g, keys in GROUPS if any(k in name for k in keys)),
-                 "other PyTorch kernels")
+        g = group_of(name)
         groups[g] = groups.get(g, 0.0) + ms
     lines = [f"profile: batch {B} | {PROFILE_STEPS} steps | wall "
              f"{wall_ms:.3f} ms/step | device busy {busy:.3f} ms/step | "
@@ -917,8 +1065,7 @@ def slam_phase(state, dev, smi, frames):
     kern, ops = [], []
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
-            kern.append((getattr(ev, "self_device_time_total", getattr(
-                ev, "self_cuda_time_total", 0)) / 1e3 / PROFILE_FRAMES,
+            kern.append((event_device_us(ev) / 1e3 / PROFILE_FRAMES,
                 ev.count / PROFILE_FRAMES, ev.key))
         elif ev.device_type == DeviceType.CPU:
             ops.append((ev.self_cpu_time_total / 1e3 / PROFILE_FRAMES,
@@ -1054,8 +1201,7 @@ def fleet_phase(state, dev, smi, frames, gt, cfg=None):
     kern = []
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
-            kern.append((getattr(ev, "self_device_time_total", getattr(
-                ev, "self_cuda_time_total", 0)) / 1e3 / FLEET_PROFILE,
+            kern.append((event_device_us(ev) / 1e3 / FLEET_PROFILE,
                 ev.count / FLEET_PROFILE, ev.key))
     kern.sort(reverse=True)
     busy = sum(k[0] for k in kern) * FLEET_PROFILE
@@ -1166,11 +1312,17 @@ def localization_leg(fleet, state, dev, smi, frames, cfg):
                              "ticks, the map frozen)")
 
 
+CHECKS = ("pair1t", "pair1", "nms", "cov", "match", "desc_sparse",
+          "desc_dense")
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
-    kernels_only = argv == ["--kernels"]
-    if argv and not kernels_only:
-        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+    kernels_only = argv[:1] == ["--kernels"]
+    names = (argv[1:] or list(CHECKS)) if kernels_only else list(CHECKS)
+    if (argv and not kernels_only) or not set(names) <= set(CHECKS):
+        print(f"usage: chip_smoke.py [--kernels [{' '.join(CHECKS)}]]",
+              file=sys.stderr)
         return 2
     import torch
 
@@ -1201,8 +1353,10 @@ def main(argv) -> int:
     log(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for kname, text in sorted(logs.items()):
         for line in text.splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line
-                                         or "Compiling" in line):
+            # each entry's "Compiling", its stack frame and spill bytes
+            # (a line of its own), its registers and shared memory
+            if ("spill" in line or "ptxas info" in line
+                    and ("Used" in line or "Compiling" in line)):
                 log(f"  {kname}: {line.strip()}")
 
     if not kernels_only:
@@ -1220,15 +1374,18 @@ def main(argv) -> int:
 
     state = load_checkpoint(os.path.join(HERE, "weights", "sp_rendered.npz"))
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = [check_pair1t(state, gen, dev), check_pair1(state, gen, dev),
-            check_nms(gen, dev),
-            check_cov(gen, dev), check_match(gen, dev),
-            check_desc_sparse(gen, dev), check_desc_dense(gen, dev)]
+    checks = dict(pair1t=lambda: check_pair1t(state, gen, dev),
+                  pair1=lambda: check_pair1(state, gen, dev),
+                  nms=lambda: check_nms(gen, dev),
+                  cov=lambda: check_cov(gen, dev),
+                  match=lambda: check_match(gen, dev),
+                  desc_sparse=lambda: check_desc_sparse(gen, dev),
+                  desc_dense=lambda: check_desc_dense(gen, dev))
+    rows = [checks[k]() for k in CHECKS if k in names]
+    log("\n".join(kernel_table(rows, launch_floor(dev), smi)))
     if kernels_only:
-        keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "launch_batch", "launch_ms",
-                "launch_bound_ms", "launch_bound_by")
-        log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+        log(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS}
+                                    for r in rows]}))
         log(f"chip_smoke --kernels: {time.perf_counter() - t_start:.1f} s "
             f"in all | {smi}")
         return 0
@@ -1260,10 +1417,8 @@ def main(argv) -> int:
         else:
             r["path"], r["launches"] = ("frontend_bf16_pair1t",
                                         pair1t_route["pair1t"])
-    keys = ("name", "route", "source", "replaces", "path", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "launch_batch", "launch_ms", "launch_bound_ms",
-            "launch_bound_by")
+    keys = ("name", "route", "source", "replaces", "path",
+            "launches") + ROW_KEYS[1:]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(f"card: {smi}")

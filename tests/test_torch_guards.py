@@ -2,7 +2,9 @@
 entry points and kernel wrappers never fall back to the CPU for a tensor
 or device that is not on the CPU."""
 
+import importlib.util
 import os
+import re
 import subprocess
 import sys
 
@@ -174,3 +176,47 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(force=True)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_every_kernel_source_is_built():
+    found = sorted(f[:-3] for f in os.listdir(_build.CSRC)
+                   if f.endswith(".cu"))
+    assert found == sorted(_build.KERNELS)
+
+
+@pytest.mark.parametrize("source", _build.KERNELS)
+def test_profile_groups_follow_the_sources(source):
+    """Every __global__ function of csrc/<source>.cu lands in <source>'s
+    group of chip_smoke.GROUPS under the profile's first-match rule (a
+    kernel named like a GEMM must not count as cuDNN / cuBLAS, one named
+    after no fragment not as another PyTorch kernel); the profiler shows
+    the demangled name with its namespace and arguments."""
+    smoke = _chip_smoke()
+    with open(os.path.join(_build.CSRC, f"{source}.cu")) as f:
+        names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*"
+                           r"\)\s+)?(\w+)\s*\(", f.read())
+    assert names
+    for name in names:
+        shown = f"void (anonymous namespace)::{name}<8, 8>(float const*)"
+        assert smoke.group_of(shown) == source, name
+
+
+@pytest.mark.parametrize("B,M,N,tile", [
+    (32, 896, 896, 0), (8, 896, 896, 0), (6, 896, 896, 0), (4, 896, 896, 1),
+    (1, 896, 896, 1), (1, 200, 136, 1)])
+def test_match_tile_plan(B, M, N, tile):
+    """The largest tile whose grid fills 132 SMs twice, else the smallest:
+    the step's B=32 takes 128 x 128, the SLAM and fleet init's B=1 the
+    64 x 32 split-column tiles."""
+    assert cuda_match.plan(B, M, N, 132) == tile
+    bm, bn = cuda_match.TILES[tile]
+    blocks = B * -(-M // bm) * -(-N // bn)
+    assert blocks >= 2 * 132 or tile == len(cuda_match.TILES) - 1
