@@ -23,8 +23,14 @@ only, for the named kernels or all seven, printing the kernel rows and no
    path that launches it (pair1 B=8, NMS / cov / desc_sparse / match B=1,
    pair1t and desc_dense B=2); the two first-conv-pair designs, pair1 and
    pair1t, against each other at B=32, 8 and 1; match beside torch.bmm of
-   the same descriptors (the product alone); then a table of the times
-   with the launch floor, an empty kernel timed the same way;
+   the same descriptors (the product alone); NMS compared at the batches
+   of its paths and of the step (1, 8 and 32) and timed with a cluster of
+   1 and of 8 blocks an image at each; NMS and cov at iters 0, 1 and 16
+   (the set-up apart from the rounds), then again on the float32
+   frontend's own outputs for the SLAM room's 220 frames, against their
+   plain versions, with the rounds each fixed point needs there; then a
+   table of the times with the launch floor, an empty kernel timed the
+   same way;
 3. frontend paths: frames 0 and 2 of the rendered room through
    `make_extractor(..., device="cuda")` in bfloat16 with the trained
    weights (weights/sp_rendered.npz), then `match_init_batch`; keypoint,
@@ -53,7 +59,7 @@ only, for the named kernels or all seven, printing the kernel rows and no
    apart; then the localization leg: stream 0's map saved, a new 8-stream
    fleet loads it in localization mode and runs 40 ticks of seed 4's
    frames, gated on relocalization, the share of ticks with a pose and the
-   frozen map.
+   frozen map, with the spans of its slowest tick beside its median's.
 
 Every path is driven with the launch counters zeroed just before it and
 read just after, and fails if a kernel of that path never launched.  The
@@ -138,7 +144,8 @@ def device_split(fn, iters=20):
         if sum(split.values()) > 0 and all(ev.count % iters == 0
                                            for ev in rows):
             return split
-    raise AssertionError("profiler: device events missing in 3 windows")
+    raise AssertionError(f"profiler: device events missing in 3 windows; "
+                         f"the last: {[(ev.key, ev.count) for ev in rows]}")
 
 
 def short_name(kernel_name):
@@ -256,6 +263,21 @@ def unit_rows(x):
     import torch
 
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+SPLIT_ITERS = (0, 1, 16)  # rounds of the NMS / cov fixed points timed apart
+
+
+def rounds_split(name, call):
+    """Log the device time alone of `call(nb, iters)` at B=32 and B=1 for
+    each of SPLIT_ITERS: iters=0 runs the set-up alone (loads, masks,
+    output), so the rest of the time at 16 is what the rounds cost."""
+    parts = []
+    for nb in (B, 1):
+        ts = [device_ms(lambda: call(nb, it)) for it in SPLIT_ITERS]
+        parts.append(f"B={nb} " + " / ".join(f"{t:.4f}" for t in ts))
+    log(f"{name} set-up and rounds: device ms at iters "
+        f"{' / '.join(map(str, SPLIT_ITERS))}: {'; '.join(parts)}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -383,6 +405,39 @@ def check_pair1(state, gen, dev):
         iters=20)
 
 
+# the batches NMS runs at on the paths (SLAM 1, fleet 8) and in the step
+NMS_BATCHES = (1, 8, B)
+
+
+def nms_agrees(what, score, uv, valid, dist, iters, batches=NMS_BATCHES):
+    """The kernel against `greedy_grid_nms` on the first nb images for each
+    nb in `batches`, logging the blocks an image the wrapper picks at each;
+    raises on any cell that differs.  The cells that differ at the largest
+    batch."""
+    import torch
+
+    from sp_orb_slam_tpu_torch.ops import cuda_nms
+    from sp_orb_slam_tpu_torch.ops.nms import greedy_grid_nms
+
+    sms = torch.cuda.get_device_properties(
+        score.device).multi_processor_count
+    parts, diffs = [], []
+    for nb in batches:
+        got = cuda_nms.batched_grid_nms(score[:nb], uv[:nb], valid[:nb],
+                                        dist=dist, iters=iters)
+        want = greedy_grid_nms(score[:nb], uv[:nb], valid[:nb], dist=dist,
+                               iters=iters)
+        diffs.append(int((got != want).sum()))
+        parts.append(f"B={nb}, cluster {cuda_nms.cluster_size(nb, sms)}: "
+                     f"{diffs[-1]} (kept {int(got.sum())})")
+    log(f"{what}: cells differing from the plain version: "
+        f"{'; '.join(parts)}")
+    if any(diffs):
+        raise AssertionError(f"{what}: the kernel disagrees with its plain "
+                             f"version")
+    return diffs[-1]
+
+
 def check_nms(gen, dev):
     import torch
 
@@ -399,20 +454,28 @@ def check_nms(gen, dev):
         0, 8, (B, hc, wc), generator=gen, device=dev)).to(torch.int32)
     uv = torch.stack([u, v], -1).contiguous()
     valid = torch.rand((B, hc, wc), generator=gen, device=dev) < 0.5
+    diff = nms_agrees("nms", score, uv, valid, 4, 16)
     got = cuda_nms.batched_grid_nms(score, uv, valid, dist=4, iters=16)
-    want = greedy_grid_nms(score, uv, valid, dist=4, iters=16)
     gold = greedy_grid_nms_reference(score[0].cpu(), uv[0].cpu(),
                                      valid[0].cpu(), dist=4)
-    torch.cuda.synchronize()
-    diff = int((got != want).sum())
-    log(f"nms: {diff} cells differ from the plain version "
-        f"(kept {int(got.sum())}); image 0 vs golden equal: "
-        f"{bool((got[0].cpu().numpy() == gold).all())}")
-    if diff or not (got[0].cpu().numpy() == gold).all():
-        raise AssertionError("nms disagrees with its plain version")
+    same = bool((got[0].cpu().numpy() == gold).all())
+    log(f"nms: image 0 vs golden equal: {same}")
+    if not same:
+        raise AssertionError("nms disagrees with its golden model")
+
     def bound(nb):
         return bound_ms(nb * hc * wc * (4 + 8 + 1 + 1), 0.0, H100_F32)
 
+    rounds_split("nms", lambda nb, it: cuda_nms.batched_grid_nms(
+        score[:nb], uv[:nb], valid[:nb], dist=4, iters=it))
+    parts = []
+    for nb in NMS_BATCHES:
+        ts = [device_ms(lambda: cuda_nms._launch(
+            score[:nb], uv[:nb], valid[:nb], 4, 16, c)) for c in (1, 8)]
+        parts.append(f"B={nb} " + " / ".join(f"{t:.4f}" for t in ts))
+    log(f"nms device ms with a cluster of 1 / 8 blocks an image (iters "
+        f"16): "
+        f"{'; '.join(parts)}")
     bms, by = bound(B)
     row = dict(
         name="nms", route="cuda", source="sp_orb_slam_tpu_torch/csrc/nms.cu",
@@ -457,6 +520,8 @@ def check_cov(gen, dev):
         nbytes = n_valid * 17 * 17 * 4 + nb * K * (8 + 1 + 20)
         return bound_ms(nbytes, 0.0, H100_F32)
 
+    rounds_split("cov", lambda nb, it: cuda_cov.batched_covariance(
+        heat[:nb], uv[:nb], valid[:nb], radius=8, iters=it))
     bms, by = bound(B)
     row = dict(
         name="cov", route="cuda", source="sp_orb_slam_tpu_torch/csrc/cov.cu",
@@ -694,6 +759,127 @@ def check_desc_dense(gen, dev):
     return at_launch_shape(
         row, 2, lambda nb: cuda_desc.sample_descriptors_dense_batch(
             coarse[:nb], cand[:nb], (H, W)), bound, iters=50)
+
+
+REAL_CHUNK = 20    # frames a forward pass of the frontend
+ROUND_CAP = 64     # rounds after which an output counts as final
+
+
+def rounds_needed(run, same):
+    """Per item, the least k in 0..ROUND_CAP with `run(k)` equal to
+    `run(ROUND_CAP)`: the rounds a fixed point needs before its output
+    stops changing.  `same(a, b)` compares two outputs item by item."""
+    import torch
+
+    final = run(ROUND_CAP)
+    need = None
+    for k in range(ROUND_CAP + 1):
+        done = same(run(k), final)
+        need = torch.where(done, k, -1) if need is None else torch.where(
+            (need < 0) & done, k, need)
+        if bool((need >= 0).all()):
+            return need
+    raise AssertionError("rounds_needed: an output never settled")
+
+
+def frontend_maps(state, dev, frames):
+    """What NMS and cov get on the SLAM path for `frames`: the float32
+    frontend's per-cell candidates (score, cand_uv, cand_valid) and
+    heat_inv, and the keypoints selected from them (uv, valid)."""
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.config import Config
+    from sp_orb_slam_tpu_torch.models.superpoint import SuperPoint
+    from sp_orb_slam_tpu_torch.ops.nms import select_keypoints
+
+    cfg = Config()
+    ex = cfg.extractor
+    hh, ww = cfg.camera.height, cfg.camera.width
+    model = SuperPoint(state).to(dev).eval()
+    parts = []
+    for lo in range(0, len(frames), REAL_CHUNK):
+        imgs = np.stack([f.image.astype(np.float32)[:hh, :ww] / 255.0
+                         for f in frames[lo:lo + REAL_CHUNK]])
+        with torch.inference_mode():
+            out = model(torch.from_numpy(imgs).to(dev),
+                        conf_thresh=ex.conf_thresh, with_heat=False,
+                        with_heat_inv=True)
+            kps = select_keypoints(
+                out.score, out.cand_uv, out.cand_valid,
+                num_features=cfg.tracking.num_features,
+                max_keypoints=cfg.runtime.max_keypoints, image_hw=(hh, ww),
+                dist=ex.nms_dist, border=ex.border, nms_iters=ex.nms_iters)
+        parts.append((out.score, out.cand_uv, out.cand_valid, out.heat_inv,
+                      kps.uv, kps.valid))
+    return [torch.cat(x).contiguous() for x in zip(*parts)], ex
+
+
+def check_real(state, dev, frames, names):
+    """NMS and cov on the frontend's own outputs for the SLAM room's
+    frames, each against its plain version (NMS: 0 cells differing; cov:
+    the response equal, cov2 within 1e-5); the rounds each fixed point
+    needs there to converge (per image for NMS, per valid keypoint for
+    the fill: maximum and median); the kernels' device time alone on
+    these inputs at B=1 and B=32.  NMS is compared at the paths' batches
+    and at all the frames."""
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.ops import cuda_cov, cuda_nms
+    from sp_orb_slam_tpu_torch.ops.covariance import keypoint_covariance
+    from sp_orb_slam_tpu_torch.ops.nms import greedy_grid_nms
+
+    (score, cand, cvalid, heat_inv, uv, valid), ex = frontend_maps(
+        state, dev, frames)
+    n = score.shape[0]
+
+    def nms(nb):
+        return cuda_nms.batched_grid_nms(score[:nb], cand[:nb], cvalid[:nb],
+                                         dist=ex.nms_dist, iters=ex.nms_iters)
+
+    def cov(nb):
+        return cuda_cov.batched_covariance(
+            heat_inv[:nb], uv[:nb], valid[:nb], radius=ex.cov_window,
+            iters=ex.cov_iters)
+
+    def times(call):
+        return " ".join(f"B={nb} {device_ms(lambda: call(nb)):.4f}"
+                        for nb in (1, B))
+
+    if "nms" in names:
+        nms_agrees(f"nms on {n} frames of the SLAM room", score, cand,
+                   cvalid, ex.nms_dist, ex.nms_iters,
+                   batches=NMS_BATCHES[:-1] + (n,))
+        r = rounds_needed(
+            lambda k: greedy_grid_nms(score, cand, cvalid, dist=ex.nms_dist,
+                                      iters=k),
+            lambda a, b: (a == b).flatten(1).all(1)).cpu().numpy()
+        log(f"nms on {n} frames of the SLAM room: rounds until the kept "
+            f"mask stops changing, per image: max {r.max()} median "
+            f"{np.median(r)} (iters {ex.nms_iters}, "
+            f"{int((r > ex.nms_iters).sum())} images above); device ms "
+            f"{times(nms)}")
+    if "cov" in names:
+        c_k, ci_k, r_k = cov(n)
+        c_p, ci_p, r_p = keypoint_covariance(heat_inv, uv, valid,
+                                             radius=ex.cov_window,
+                                             iters=ex.cov_iters)
+        err = float((c_k - c_p).abs().max())
+        resp_equal = bool(torch.equal(r_k, r_p))
+        r = rounds_needed(
+            lambda k: keypoint_covariance(heat_inv, uv, valid,
+                                          radius=ex.cov_window, iters=k)[0],
+            lambda a, b: (a == b).all(-1))[valid].cpu().numpy()
+        log(f"cov on {n} frames of the SLAM room ({int(valid.sum())} "
+            f"keypoints): cov2 max_abs_err {err:.3e}, response equal "
+            f"{resp_equal}; rounds until cov2 stops changing, per keypoint: "
+            f"max {r.max()} median {np.median(r)} (iters {ex.cov_iters}, "
+            f"{int((r > ex.cov_iters).sum())} keypoints above); device ms "
+            f"{times(cov)}")
+        if err > 1e-5 or not resp_equal:
+            raise AssertionError("cov disagrees with its plain version on "
+                                 "the frontend's outputs")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1261,6 +1447,16 @@ def fleet_phase(state, dev, smi, frames, gt, cfg=None):
     return launches
 
 
+def timer_totals(fleet):
+    """Seconds by span tag: the fleet's own spans (`fleet/*`) and its
+    streams' spans summed over the streams (`streams:<tag>`)."""
+    tot = {t: a.total for t, a in fleet.timer.tags.items()}
+    for s in fleet.systems:
+        for t, a in s.timer.tags.items():
+            tot[f"streams:{t}"] = tot.get(f"streams:{t}", 0.0) + a.total
+    return tot
+
+
 def localization_leg(fleet, state, dev, smi, frames, cfg):
     """Stream 0's map saved; a new fleet loads it in localization mode and
     runs LOC_TICKS ticks of room FLEET_SEEDS[0], stream i from frame
@@ -1287,16 +1483,25 @@ def localization_leg(fleet, state, dev, smi, frames, cfg):
                              "load")
     room = frames[FLEET_SEEDS[0]]
     with_pose = [0] * n
-    per_tick = []
+    per_tick, tick_spans = [], []
     torch.cuda.synchronize()
     for k in range(LOC_TICKS):
+        before = timer_totals(loc)
         t1 = time.perf_counter()
         res = loc.tick([room[20 + 2 * i + k] for i in range(n)])
         per_tick.append((time.perf_counter() - t1) * 1e3)
+        after = timer_totals(loc)
+        tick_spans.append({t: (v - before.get(t, 0.0)) * 1e3
+                           for t, v in after.items()})
         for i, p in enumerate(res):
             with_pose[i] += p is not None
     torch.cuda.synchronize()
     pt = np.asarray(per_tick)
+    slow, mid = int(pt.argmax()), int(np.argsort(pt)[len(pt) // 2])
+    for tag, k in (("slowest", slow), ("median", mid)):
+        spans = ", ".join(f"{t} {v:.2f}" for t, v in
+                          sorted(tick_spans[k].items()) if v > 0)
+        log(f"localization: {tag} tick {k} {pt[k]:.2f} ms: {spans} ms")
     states = [s.tracker.state for s in loc.systems]
     frozen = [(s.map.n_keyframes(), s.map.n_points()) for s in loc.systems]
     log(f"localization: map of stream 0 ({n_kf} KFs, {n_pt} points), {n} "
@@ -1371,6 +1576,8 @@ def main(argv) -> int:
               for s in FLEET_SEEDS}
         log(f"rendered {sum(map(len, rooms.values()))} frames in "
             f"{time.perf_counter() - t0:.1f} s")
+    elif {"nms", "cov"} & set(names):  # the SLAM room, for check_real
+        rooms = render_all({5: (SLAM_FRAMES, SLAM_FRAMES)})
 
     state = load_checkpoint(os.path.join(HERE, "weights", "sp_rendered.npz"))
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1382,6 +1589,8 @@ def main(argv) -> int:
                   desc_sparse=lambda: check_desc_sparse(gen, dev),
                   desc_dense=lambda: check_desc_dense(gen, dev))
     rows = [checks[k]() for k in CHECKS if k in names]
+    if {"nms", "cov"} & set(names):
+        check_real(state, dev, rooms[5], names)
     log("\n".join(kernel_table(rows, launch_floor(dev), smi)))
     if kernels_only:
         log(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS}

@@ -16,6 +16,7 @@ from sp_orb_slam_tpu_torch.ops import _build
 from sp_orb_slam_tpu_torch.ops.covariance import keypoint_covariance
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+MAX_RADIUS = 15  # csrc/cov.cu builds one kernel instance per radius 0-15
 
 
 def batched_covariance(heat_inv: torch.Tensor, uv: torch.Tensor,
@@ -29,12 +30,16 @@ def batched_covariance(heat_inv: torch.Tensor, uv: torch.Tensor,
     B, H, W = heat_inv.shape
     K = uv.shape[1]
     size = 2 * radius + 1
-    if not 0 <= radius <= 15 or size > min(H, W):
-        raise ValueError(f"cov kernel needs 0 <= radius <= 15 and a window "
-                         f"inside the image, got radius {radius}, {H}x{W}")
+    if not 0 <= radius <= MAX_RADIUS or size > min(H, W):
+        raise ValueError(f"cov kernel: instances for radius 0-{MAX_RADIUS} "
+                         f"and a window inside the image, got radius "
+                         f"{radius}, {H}x{W}")
     _build.check(heat_inv, "heat_inv", torch.float32, (B, H, W))
     _build.check(uv, "uv", torch.float32, (B, K, 2))
     _build.check(valid, "valid", torch.bool, (B, K))
+    if uv.data_ptr() % 8:
+        # the kernel reads each keypoint's uv as one float2
+        raise ValueError("cov kernel needs 8-byte aligned uv")
     dev = heat_inv.device
     cov2 = torch.empty((B, K, 2), dtype=torch.float32, device=dev)
     cov2_inv = torch.empty_like(cov2)

@@ -91,3 +91,48 @@ def test_cov_window_clips_at_image_edge():
         torch.from_numpy(np.ones_like(valid)), radius=8, iters=16)
     np.testing.assert_array_equal(r.numpy(), np.asarray(r_x))
     np.testing.assert_allclose(c.numpy(), np.asarray(c_x), rtol=0, atol=1e-5)
+
+
+def _descent_path(B=1, H=64, W=64, K=16, at=(24, 20)):
+    """A heat map that is 0 (never reached) but for a strictly descending
+    path from keypoint 0 at `at`: 8 pixels right, to the window's edge,
+    then 8 down, so the fill needs exactly 16 rounds; the other keypoints
+    anywhere, a third of them invalid."""
+    rng = np.random.default_rng(3)
+    heat = np.zeros((B, H, W), np.float32)
+    u0, v0 = at
+    path = [(u0 + s, v0) for s in range(9)] + [(u0 + 8, v0 + s)
+                                               for s in range(1, 9)]
+    for s, (u, v) in enumerate(path):
+        heat[:, v, u] = 1.0 - 0.05 * s
+    uv = np.stack([rng.integers(8, W - 8, (B, K)),
+                   rng.integers(8, H - 8, (B, K))], -1).astype(np.float32)
+    uv[:, 0] = at
+    valid = rng.random((B, K)) > 0.33
+    valid[:, 0] = True
+    return heat, uv, valid
+
+
+@pytest.mark.parametrize("iters", [15, 16])
+def test_cov_descent_path_of_16(iters):
+    """The fill after 15 rounds stops one pixel short of the path's end,
+    after 16 it reaches it: the plain fill equals the Pallas kernel
+    (interpret mode) at both, and the two differ."""
+    heat, uv, valid = _descent_path()
+    args = [torch.from_numpy(x) for x in (heat, uv, valid)]
+    # the plain fill stops growing after 16 rounds, not before
+    c15, c16, c17 = (tcov.keypoint_covariance(*args, radius=8, iters=k)[0]
+                     for k in (15, 16, 17))
+    assert (c15[0, 0] != c16[0, 0]).any() and torch.equal(c16, c17)
+    with pltpu.force_tpu_interpret_mode():
+        c_p, ci_p, r_p = pallas_cov.pallas_covariance(
+            jnp.asarray(heat), jnp.asarray(uv), jnp.asarray(valid),
+            radius=8, iters=iters)
+    c, ci, r = cuda_cov.batched_covariance(*args, radius=8, iters=iters)
+    np.testing.assert_array_equal(r.numpy(), np.asarray(r_p))
+    np.testing.assert_allclose(c.numpy(), np.asarray(c_p), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ci.numpy(), np.asarray(ci_p), rtol=1e-5,
+                               atol=1e-6)
+    other = cuda_cov.batched_covariance(*args, radius=8,
+                                        iters=31 - iters)[0]
+    assert (c[0, 0] != other[0, 0]).any()

@@ -127,6 +127,148 @@ def test_cov_kernel(cuda, gen):
     assert torch.allclose(ci, ci_p, rtol=1e-5, atol=1e-6)
 
 
+def _nms_cells(gen, cuda, B, hc, wc, p_valid=0.7):
+    """Cells with forced score ties, one candidate inside each cell."""
+    score = torch.round(torch.rand((B, hc, wc), generator=gen, device=cuda)
+                        * 50) / 50
+    u = torch.arange(wc, device=cuda) * 8 + torch.randint(
+        0, 8, (B, hc, wc), generator=gen, device=cuda)
+    v = torch.arange(hc, device=cuda)[:, None] * 8 + torch.randint(
+        0, 8, (B, hc, wc), generator=gen, device=cuda)
+    uv = torch.stack([u, v], -1).to(torch.int32).contiguous()
+    valid = torch.rand((B, hc, wc), generator=gen, device=cuda) < p_valid
+    return score, uv, valid
+
+
+@pytest.mark.parametrize("iters", [0, 1, 16])
+@pytest.mark.parametrize("B,hc,wc", [(1, 60, 94), (3, 47, 155), (2, 5, 32)])
+def test_nms_kernel_shapes(cuda, gen, B, hc, wc, iters):
+    """B=1; 1241x376 (155 columns: a ragged last word); a width of exactly
+    one word; no round, one, and the config's 16."""
+    score, uv, valid = _nms_cells(gen, cuda, B, hc, wc)
+    n = _build.LAUNCHES["nms"]
+    got = cuda_nms.batched_grid_nms(score, uv, valid, iters=iters)
+    assert _build.LAUNCHES["nms"] == n + 1
+    assert torch.equal(got, greedy_grid_nms(score, uv, valid, iters=iters))
+
+
+@pytest.mark.parametrize("cluster", [1, cuda_nms.CLUSTER])
+def test_nms_kernel_cluster(cuda, gen, cluster):
+    """Both cluster sizes the launcher has (blocks an image, each masking a
+    band of rows), whatever the wrapper picks, with 47 rows (bands of 5 to
+    47 rows) and a long chain."""
+    for score, uv, valid in (_nms_cells(gen, cuda, 3, 47, 155),
+                             _nms_chain(cuda, 2, 47, 94)):
+        for iters in (0, 16, 200):
+            kept = cuda_nms._launch(score, uv, valid, 4, iters, cluster)
+            assert torch.equal(kept, greedy_grid_nms(score, uv, valid,
+                                                     iters=iters))
+
+
+def _nms_chain(cuda, B, hc, wc):
+    """tests/test_torch_nms.py `_chain`: a zigzag path of conflicting cells
+    in rows 0 and 1 along a monotone score ramp, 2 wc rounds to converge;
+    the other rows invalid."""
+    k = torch.arange(2 * wc, device=cuda)
+    r, c = k % 2, k // 2
+    score = torch.zeros((B, hc, wc), device=cuda)
+    uv = torch.zeros((B, hc, wc, 2), dtype=torch.int32, device=cuda)
+    valid = torch.zeros((B, hc, wc), dtype=torch.bool, device=cuda)
+    score[:, r, c] = 1.0 - k / (4.0 * wc)
+    uv[:, r, c, 0] = (8 * c + 3 + 4 * r).to(torch.int32)
+    uv[:, r, c, 1] = (7 + r).to(torch.int32)
+    valid[:, r, c] = True
+    return score, uv, valid
+
+
+@pytest.mark.parametrize("iters", [16, 187, 188, 400])
+def test_nms_kernel_long_chain(cuda, iters):
+    """A chain across 60x94 that needs 188 rounds: the kernel stops after
+    `iters` rounds where the fixed point is not reached, and at it once
+    it is, as the plain version does."""
+    score, uv, valid = _nms_chain(cuda, 2, 60, 94)
+    got = cuda_nms.batched_grid_nms(score, uv, valid, iters=iters)
+    assert torch.equal(got, greedy_grid_nms(score, uv, valid, iters=iters))
+    assert int(got[0].sum()) == min(iters + 1, 188) // 2
+
+
+def test_nms_kernel_grid_too_large(cuda):
+    """A grid whose words or shared memory do not fit raises, naming the
+    sizes, and launches nothing."""
+    score = torch.zeros((1, 135, 240), device=cuda)
+    uv = torch.zeros((1, 135, 240, 2), dtype=torch.int32, device=cuda)
+    valid = torch.zeros((1, 135, 240), dtype=torch.bool, device=cuda)
+    n = _build.LAUNCHES["nms"]
+    with pytest.raises(ValueError, match="135x240"):
+        cuda_nms.batched_grid_nms(score, uv, valid)
+    assert _build.LAUNCHES["nms"] == n
+
+
+def _cov_inputs(gen, cuda, B, H, W, K, p_valid=0.8):
+    heat = torch.round(torch.rand((B, H, W), generator=gen, device=cuda)
+                       * 16) / 16
+    uv = torch.stack([torch.randint(0, W, (B, K), generator=gen, device=cuda),
+                      torch.randint(0, H, (B, K), generator=gen,
+                                    device=cuda)], -1).float().contiguous()
+    valid = torch.rand((B, K), generator=gen, device=cuda) < p_valid
+    return heat, uv, valid
+
+
+def _check_cov(got, want):
+    """cov2 within 1e-5 and cov2_inv to rtol 1e-5 (f32 sums in another
+    order), the response equal."""
+    (c, ci, r), (c_p, ci_p, r_p) = got, want
+    assert torch.equal(r, r_p)
+    assert (c - c_p).abs().max() <= 1e-5
+    assert torch.allclose(ci, ci_p, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("radius", [0, 4, 8, 15])
+@pytest.mark.parametrize("iters", [0, 1, 16])
+def test_cov_kernel_radius(cuda, gen, radius, iters):
+    heat, uv, valid = _cov_inputs(gen, cuda, 2, 96, 128, 256)
+    n = _build.LAUNCHES["cov"]
+    got = cuda_cov.batched_covariance(heat, uv, valid, radius=radius,
+                                      iters=iters)
+    assert _build.LAUNCHES["cov"] == n + 1
+    _check_cov(got, keypoint_covariance(heat, uv, valid, radius=radius,
+                                        iters=iters))
+
+
+def test_cov_kernel_misaligned_uv(cuda, gen):
+    """A contiguous uv at an odd float offset raises and launches
+    nothing."""
+    heat, uv, valid = _cov_inputs(gen, cuda, 2, 96, 128, 256)
+    odd = torch.empty(uv.numel() + 1, device=cuda)[1:].view(uv.shape)
+    odd.copy_(uv)
+    n = _build.LAUNCHES["cov"]
+    with pytest.raises(ValueError, match="8-byte aligned uv"):
+        cuda_cov.batched_covariance(heat, odd, valid)
+    assert _build.LAUNCHES["cov"] == n
+
+
+def test_cov_kernel_all_invalid(cuda, gen):
+    heat, uv, valid = _cov_inputs(gen, cuda, 2, 96, 128, 256, p_valid=0.0)
+    c, ci, r = cuda_cov.batched_covariance(heat, uv, valid)
+    assert (c == 1).all() and (ci == 1).all() and (r == 0).all()
+
+
+@pytest.mark.parametrize("iters", [15, 16, 40])
+def test_cov_kernel_descent_path_of_16(cuda, iters):
+    """tests/test_torch_cov.py `_descent_path` on the card: the path from
+    keypoint 0's centre needs exactly 16 rounds."""
+    heat = torch.zeros((1, 64, 64), device=cuda)
+    u0, v0 = 24, 20
+    path = [(u0 + s, v0) for s in range(9)] + [(u0 + 8, v0 + s)
+                                               for s in range(1, 9)]
+    for s, (u, v) in enumerate(path):
+        heat[0, v, u] = 1.0 - 0.05 * s
+    uv = torch.tensor([[[u0, v0], [40.0, 30.0]]], device=cuda)
+    valid = torch.ones((1, 2), dtype=torch.bool, device=cuda)
+    got = cuda_cov.batched_covariance(heat, uv, valid, iters=iters)
+    _check_cov(got, keypoint_covariance(heat, uv, valid, iters=iters))
+
+
 def _match_inputs(gen, cuda, B, M, N, D=256):
     """Unit descriptors, frame 2 noisy copies of frame 1 with its last 16
     rows exact duplicates of its first 16 (distance ties), windows of

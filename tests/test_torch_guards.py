@@ -201,8 +201,10 @@ def test_profile_groups_follow_the_sources(source):
     the demangled name with its namespace and arguments."""
     smoke = _chip_smoke()
     with open(os.path.join(_build.CSRC, f"{source}.cu")) as f:
-        names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*"
-                           r"\)\s+)?(\w+)\s*\(", f.read())
+        # attributes such as __cluster_dims__(...) and __launch_bounds__(...)
+        # may stand between `void` and the name
+        names = re.findall(r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s+)*"
+                           r"(\w+)\s*\(", f.read())
     assert names
     for name in names:
         shown = f"void (anonymous namespace)::{name}<8, 8>(float const*)"

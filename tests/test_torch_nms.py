@@ -98,3 +98,67 @@ def test_select_keypoints_matches_jax(case):
         assert a.shape == b.shape, f
         assert a.dtype == b.dtype, (f, a.dtype, b.dtype)
         np.testing.assert_array_equal(b, a, err_msg=f)
+
+
+def _chain(B, hc, wc):
+    """A monotone score ramp along a zigzag path of conflicting cells: row
+    0 at (8c + 3, 7), row 1 at (8c + 7, 8), so (0, c) conflicts with (1, c)
+    and (1, c) with (0, c + 1) and no other pair; the path's 2 wc cells
+    decide one a round, so the fixed point needs 2 wc Jacobi rounds.  Rows
+    below 1 are invalid."""
+    k = np.arange(2 * wc)
+    r, c = k % 2, k // 2
+    score = np.zeros((B, hc, wc), np.float32)
+    uv = np.zeros((B, hc, wc, 2), np.int32)
+    valid = np.zeros((B, hc, wc), bool)
+    score[:, r, c] = 1.0 - k / (4.0 * wc)
+    uv[:, r, c, 0] = 8 * c + 3 + 4 * r
+    uv[:, r, c, 1] = 7 + r
+    valid[:, r, c] = True
+    return score, uv, valid
+
+
+def test_nms_long_chain_stops_at_iters():
+    """A chain that needs 48 rounds: after 16 the plain fixed point equals
+    the Pallas kernel (interpret mode) and the XLA fixed point, and differs
+    from the converged golden; after 64 it equals the golden."""
+    score, uv, valid = _chain(2, 3, 24)
+    args = [torch.from_numpy(x) for x in (score, uv, valid)]
+    # one cell decided a round, kept and rejected in turn: the last kept
+    # at round 47, the last rejected at round 48
+    assert [int(tnms.greedy_grid_nms(*args, dist=4, iters=k)[0].sum())
+            for k in (16, 46, 47, 48)] == [8, 23, 24, 24]
+    gold = np.stack([tnms.greedy_grid_nms_reference(
+        score[b], uv[b], valid[b], dist=4) for b in range(2)])
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pallas_nms.batched_grid_nms(
+            jnp.asarray(score), jnp.asarray(uv), jnp.asarray(valid),
+            dist=4, iters=16))
+    xla = np.asarray(jax.vmap(partial(jnms.greedy_grid_nms, dist=4,
+                                      iters=16))(
+        jnp.asarray(score), jnp.asarray(uv), jnp.asarray(valid)))
+    got = cuda_nms.batched_grid_nms(*args, dist=4, iters=16).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, xla)
+    assert got.sum() == 2 * 8 and (got != gold).any()
+    np.testing.assert_array_equal(
+        tnms.greedy_grid_nms(*args, dist=4, iters=64).numpy(), gold)
+
+
+H100_SMEM_OPTIN = 232448  # shared memory a block can opt in to on Hopper
+
+
+def test_nms_footprint():
+    """The kernel's per-image grid: 180 words and 98,144 B at 752x480;
+    1241x376 (155 columns, not a multiple of 32) fits; 1080p does not."""
+    assert cuda_nms.footprint(60, 94) == (180, 98144)
+    words, smem = cuda_nms.footprint(47, 155)
+    assert words == 235 and smem <= H100_SMEM_OPTIN
+    words, smem = cuda_nms.footprint(135, 240)
+    assert words > cuda_nms.MAX_WORDS or smem > H100_SMEM_OPTIN
+
+
+def test_nms_cluster_size():
+    """8 blocks an image up to B=8 on the H100's 132 SMs, 1 above."""
+    assert [cuda_nms.cluster_size(b, 132) for b in (1, 8, 9, 32, 220)] == [
+        8, 8, 1, 1, 1]
