@@ -22,7 +22,10 @@ only, for the named kernels or all seven, printing the kernel rows and no
    waited for); each kernel's times and bound again at the batch of the
    path that launches it (pair1 B=8, NMS / cov / desc_sparse / match B=1,
    pair1t and desc_dense B=2); the two first-conv-pair designs, pair1 and
-   pair1t, against each other at B=32, 8 and 1; match beside torch.bmm of
+   pair1t, against each other at B=32, 8 and 1 (CUDA events) and, in
+   device time alone in turns, at B=32, 8, 2 and 1, where pair1t is also
+   held against its plain version, with its registers and spill bytes
+   (0 required); match beside torch.bmm of
    the same descriptors (the product alone); NMS compared at the batches
    of its paths and of the step (1, 8 and 32) and timed with a cluster of
    1 and of 8 blocks an image at each; NMS and cov at iters 0, 1 and 16
@@ -77,6 +80,7 @@ import dataclasses
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import time
@@ -310,32 +314,81 @@ def pair_inputs(state, gen, dev):
     return images, w, library, bound
 
 
-def check_pair1t(state, gen, dev):
+def ptxas_report(log_text, kernel):
+    """(registers, spill store bytes, spill load bytes) of the entry
+    function whose mangled name holds `kernel`, from nvcc's -Xptxas -v."""
+    regs = stores = loads = None
+    mine = False
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            mine = kernel in line
+        elif mine and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", line)):
+            stores, loads = int(m[1]), int(m[2])
+        elif mine and (m := re.search(r"Used (\d+) registers", line)):
+            regs = int(m[1])
+    return regs, stores, loads
+
+
+PAIR_BATCHES = (B, 8, 2, 1)  # the step, the fleet, pair1t's path, one image
+
+
+def check_pair1t(state, gen, dev, build_logs):
+    """The transposed-GEMM kernel against its plain version at B=32, 8, 2
+    and 1 (the first rows of one batch), with the gate of
+    tests/test_torch_pair1t.py: conv1b's f32 sums in another order, so a
+    value may move one bf16 ulp: rtol 1e-2, atol 1e-3, more than 99 %
+    bit-identical.  The launch is a persistent grid of min(tiles, SMs x
+    resident blocks).  Logs its registers and spill bytes (0 spills
+    required), and its device time alone beside the pair1 kernel's on the
+    same inputs at each batch, in turns (pair1t, pair1, pair1, pair1t)."""
     import torch
 
-    from sp_orb_slam_tpu_torch.ops import cuda_pair1t
+    from sp_orb_slam_tpu_torch.ops import cuda_pair1, cuda_pair1t
 
+    regs, stores, loads = ptxas_report(build_logs.get("pair1t", ""),
+                                       "pair1t_kernel")
+    log(f"pair1t_kernel: {regs} registers, {stores} bytes spill stores, "
+        f"{loads} bytes spill loads")
+    if regs is None or stores or loads:
+        raise AssertionError("pair1t kernel: no ptxas report, or spills")
     images, w, library, bound = pair_inputs(state, gen, dev)
     bms, by = bound(B)
-    got = cuda_pair1t.fused_pair1t(images, *w)
-    want = cuda_pair1t.fused_pair1t_plain(images, *w)
-    torch.cuda.synchronize()
-    g, t = got.float(), want.float()
-    err = (g - t).abs()
-    # 1 bf16 ulp is <= 2^-7 relative; atol covers outputs near 0, where a
-    # one-ulp flip of an upstream y1 value moves the sum by ~1e-4
-    bad = int((err > 1e-2 * t.abs() + 1e-3).sum())
-    same = float((g == t).float().mean())
-    log(f"pair1t: max_abs_err {float(err.max()):.3e}, bit-identical "
-        f"{same:.6f}, outside rtol=1e-2/atol=1e-3: {bad}")
-    if got.shape != (B, H // 2, W // 2, 64) or bad:
-        raise AssertionError("pair1t disagrees with its plain version")
+    want = cuda_pair1t.fused_pair1t_plain(images, *w).float()
+    errs = []
+    for nb in PAIR_BATCHES:
+        got = cuda_pair1t.fused_pair1t(images[:nb], *w)
+        torch.cuda.synchronize()
+        g, t = got.float(), want[:nb]
+        err = (g - t).abs()
+        # 1 bf16 ulp is <= 2^-7 relative; atol covers outputs near 0, where
+        # a one-ulp flip of an upstream y1 value moves the sum by ~1e-4
+        bad = int((err > 1e-2 * t.abs() + 1e-3).sum())
+        same = float((g == t).float().mean())
+        grid, blocks, sms = cuda_pair1t.launch_grid(nb, H, W, dev)
+        tiles = cuda_pair1t.tiles(nb, H, W)
+        log(f"pair1t B={nb}: max_abs_err {float(err.max()):.3e}, "
+            f"bit-identical {same:.6f}, outside rtol=1e-2/atol=1e-3: {bad}; "
+            f"grid {grid} for {tiles} tiles, {blocks} blocks an SM x {sms} "
+            f"SMs")
+        if (got.shape != (nb, H // 2, W // 2, 64) or bad or same <= 0.99
+                or blocks < 1 or grid != min(tiles, sms * blocks)):
+            raise AssertionError("pair1t disagrees with its plain version")
+        errs.append(float(err.max()))
+    for nb in PAIR_BATCHES:
+        x = images[:nb]
+        t1, p1, p2, t2 = (device_ms(lambda: f(x, *w)) for f in (
+            cuda_pair1t.fused_pair1t, cuda_pair1.fused_pair1,
+            cuda_pair1.fused_pair1, cuda_pair1t.fused_pair1t))
+        log(f"pair1t B={nb}: device ms {t1:.4f}, {t2:.4f}; the pair1 kernel "
+            f"{p1:.4f}, {p2:.4f} on the same inputs; bound "
+            f"{bound(nb)[0]:.4f} ms")
     row = dict(
         name="pair1t", route="cuda",
         source="sp_orb_slam_tpu_torch/csrc/pair1t.cu",
         replaces="sp_orb_slam_tpu/ops/pallas_pair1t.py:257",
-        max_abs_err=float(err.max()),
-        **kernel_times(lambda: cuda_pair1t.fused_pair1t(images, *w), 10),
+        max_abs_err=max(errs),
+        **kernel_times(lambda: cuda_pair1t.fused_pair1t(images, *w), 20),
         plain_ms=cuda_ms(lambda: cuda_pair1t.fused_pair1t_plain(images, *w),
                          iters=5),
         bound_ms=bms, bound_by=by, library_ms=cuda_ms(library))
@@ -1109,7 +1162,7 @@ def step_fps(step):
 # its name holds, else in OTHER
 GROUPS = (
     ("pair1", ("pair1_kernel",)),
-    ("pair1t", ("pair1t_kernel",)),
+    ("pair1t", ("pair1t_kernel", "pair1t_row_product_kernel")),
     ("match", ("match_tile_kernel", "match_merge_kernel",
                "match_finalize_kernel")),
     ("nms", ("nms_kernel",)),
@@ -1581,7 +1634,7 @@ def main(argv) -> int:
 
     state = load_checkpoint(os.path.join(HERE, "weights", "sp_rendered.npz"))
     gen = torch.Generator(device=dev).manual_seed(0)
-    checks = dict(pair1t=lambda: check_pair1t(state, gen, dev),
+    checks = dict(pair1t=lambda: check_pair1t(state, gen, dev, logs),
                   pair1=lambda: check_pair1(state, gen, dev),
                   nms=lambda: check_nms(gen, dev),
                   cov=lambda: check_cov(gen, dev),

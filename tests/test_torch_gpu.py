@@ -33,8 +33,17 @@ def gen(cuda):
     return torch.Generator(device=cuda).manual_seed(0)
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 48, 200), (3, 480, 752)])
+@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 48, 200), (3, 480, 752),
+                                   (8, 480, 752), (1, 480, 640),
+                                   (2, 480, 752)])
 def test_pair1t_kernel(cuda, gen, shape):
+    """The transposed-GEMM kernel against its plain version: conv1b's f32
+    sums in another order, so a value may move one bf16 ulp (rtol 1e-2,
+    atol 1e-3, > 99 % bit-identical).  Shapes: pair1's, with the fleet's
+    (8, 480, 752), whose right band is ragged (752 = 5 x 128 + 112), 640
+    columns (whole bands), 200 (a ragged band of 72), and the pair1t
+    path's batch (2, 480, 752).  At least one block fits on an SM and the
+    grid is min(tiles, SMs x blocks)."""
     B, H, W = shape
     images = torch.rand(shape, generator=gen, device=cuda)
     w = [torch.randn(s, generator=gen, device=cuda) * sc
@@ -48,6 +57,39 @@ def test_pair1t_kernel(cuda, gen, shape):
     assert got.shape == (B, H // 2, W // 2, 64)
     assert ((got - want).abs() <= 1e-2 * want.abs() + 1e-3).all()
     assert (got == want).float().mean() > 0.99
+    grid, blocks, sms = cuda_pair1t.launch_grid(B, H, W, cuda)
+    assert blocks >= 1
+    assert grid == min(cuda_pair1t.tiles(B, H, W), sms * blocks)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2, 3, 7, 8, 9, 15])
+def test_pair1t_row_product_shift(cuda, gen, shift):
+    """conv1b's B operand shifted by whole pixels (128 bytes each) inside
+    the 128-byte swizzle atom, as a tap's column offset moves it: one k
+    pass of the kernel's product equals the f32 matrix product of the
+    same bf16 values (the products are exact, the sums in another order)."""
+    w = torch.randn((64, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    y = torch.randn((144, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    packed = torch.gather(w, 1, cuda_pair1.swizzle_index().to(cuda))
+    n = _build.LAUNCHES["pair1t"]
+    got = cuda_pair1t.row_product(packed.contiguous(), y, shift)
+    want = w.float() @ y[shift:shift + 128].float().T
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert _build.LAUNCHES["pair1t"] == n
+
+
+def test_pair1t_shares_pair1_packing(cuda, gen):
+    """pair1t launches on the pair1 kernel's packed weights: the first of
+    the two wrappers to see a set of weights packs it, the other reuses it."""
+    images = torch.rand((1, 48, 200), generator=gen, device=cuda)
+    w = [torch.randn(s, generator=gen, device=cuda) * sc
+         for s, sc in (((64, 1, 3, 3), 0.5), ((64,), 0.1),
+                       ((64, 64, 3, 3), 0.05), ((64,), 0.1))]
+    n = cuda_pair1.packs
+    cuda_pair1t.fused_pair1t(images, *w)
+    cuda_pair1.fused_pair1(images, *w)
+    cuda_pair1t.fused_pair1t(images, *w)
+    assert cuda_pair1.packs == n + 1
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 96), (1, 48, 200), (3, 480, 752),

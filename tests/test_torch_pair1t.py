@@ -68,3 +68,44 @@ def test_forward_pair1t_matches_jax_bf16_pair():
     np.testing.assert_allclose(t.score.numpy(), np.asarray(j.score),
                                atol=0.02)
     assert (t.cand_uv.numpy() == np.asarray(j.cand_uv)).mean() > 0.95
+
+
+@pytest.mark.parametrize("shape,tiles", [
+    ((32, 480, 752), 32 * 240 * 6),  # the step: a ragged band of 112
+    ((2, 480, 752), 2 * 240 * 6),    # the pair1t frontend's batch
+    ((1, 480, 640), 240 * 5),        # whole bands
+    ((1, 48, 200), 24 * 2),          # a ragged band of 72
+])
+def test_pair1t_tiles(shape, tiles):
+    """The kernel's tiles: 2 full-resolution rows x 128 columns, the right
+    band ragged; the persistent grid is min(tiles, SMs x blocks)."""
+    assert cuda_pair1t.tiles(*shape) == tiles
+
+
+def test_pair1t_cpu_route_packs_nothing():
+    """A CPU tensor takes the plain version and leaves pair1's packed-weight
+    cache alone (the kernel shares that cache with the pair1 kernel)."""
+    from sp_orb_slam_tpu_torch.ops import cuda_pair1
+
+    rng = np.random.default_rng(6)
+    w = [torch.from_numpy(rng.standard_normal(s, np.float32))
+         for s in ((64, 1, 3, 3), (64,), (64, 64, 3, 3), (64,))]
+    n = cuda_pair1.packs
+    got = cuda_pair1t.fused_pair1t(torch.rand(1, 16, 24), *w)
+    assert got.shape == (1, 8, 12, 64)
+    assert cuda_pair1.packs == n
+
+
+def test_pair1t_kernel_shape_rules():
+    """Off the CPU the kernel loads input rows by TMA (16-byte row strides):
+    W % 4 == 0, checked before anything reaches a card; the row product's
+    shift must leave 128 pixels."""
+    w = (torch.zeros(64, 1, 3, 3), torch.zeros(64), torch.zeros(
+        64, 64, 3, 3), torch.zeros(64))
+    with pytest.raises(ValueError, match="W % 4"):
+        cuda_pair1t.fused_pair1t(torch.zeros(1, 16, 22, device="meta"), *w)
+    wt = torch.zeros(64, 64, dtype=torch.bfloat16)
+    y = torch.zeros(144, 64, dtype=torch.bfloat16)
+    for shift in (-1, 17):
+        with pytest.raises(ValueError, match="shift"):
+            cuda_pair1t.row_product(wt, y, shift)
