@@ -62,7 +62,16 @@ only, for the named kernels or all seven, printing the kernel rows and no
    apart; then the localization leg: stream 0's map saved, a new 8-stream
    fleet loads it in localization mode and runs 40 ticks of seed 4's
    frames, gated on relocalization, the share of ticks with a pose and the
-   frozen map, with the spans of its slowest tick beside its median's.
+   frozen map, with the spans of its slowest tick beside its median's;
+8. SLAM with loop closing: `System(cfg, params, device="cuda")` with
+   `use_loop` and the fitted NetVLAD checkpoint (weights/vlad_rendered.npz)
+   over phase 6's 220 frames (on which the JAX package closes the room's
+   loop at this configuration): gates a loop closed, 0 LOST, >= 80 %
+   tracked, ATE < 0.2, NMS / cov / desc_sparse launched once a frame and
+   match at least once; ms per frame of `System.process` and the spans,
+   the `loop` span of each frame that runs a Sim3 attempt or a loop
+   event, split by the loop closer's stages, the loops' keyframe ids, and
+   the ATE beside phase 6's (loop closing off).
 
 Every path is driven with the launch counters zeroed just before it and
 read just after, and fails if a kernel of that path never launched.  The
@@ -1351,6 +1360,131 @@ def slam_phase(state, dev, smi, frames):
         raise AssertionError(f"desc_sparse launched "
                              f"{launches['desc_sparse']} times for "
                              f"{SLAM_FRAMES} frames")
+    return launches, float(ate.rmse)
+
+
+# ---------------------------------------------------------------- phase 8
+
+LOOP_KERNELS = ("nms", "cov", "desc_sparse")  # once a frame; match >= 1
+LOOP_SLOW_MS = 100.0  # loop spans printed one by one
+# the loop closer's stages timed apart (the essential graph runs inside
+# the correction, global BA after it)
+LOOP_STAGES = ("_detect", "_compute_sim3", "_correct_loop_locked",
+               "_essential_graph", "_run_gba")
+
+
+def span_line(tag, v, smi):
+    import numpy as np
+
+    return (f"{tag}: median {np.median(v):.2f} p90 "
+            f"{np.percentile(v, 90):.2f} max {np.max(v):.2f} ms (n={len(v)})"
+            f" | {smi}")
+
+
+def loop_phase(state, dev, smi, frames, ate_off):
+    """SLAM with loop closing on the card: a System with `use_loop` and
+    the fitted NetVLAD checkpoint spins phase 6's rendered room (the
+    JAX package closes its loop on these 220 frames), with no profiler and
+    no synchronize of its own; then the gates: a loop closed, 0 LOST,
+    >= 80 % tracked, ATE < 0.2, the SLAM kernels launched as the frames
+    ask.  `ate_off` is phase 6's ATE on the same frames without loop
+    closing."""
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.config import Config, _merge_dataclass
+    from sp_orb_slam_tpu_torch.eval.ate import ate_sim3
+    from sp_orb_slam_tpu_torch.io.render import RenderedDataset
+    from sp_orb_slam_tpu_torch.slam.system import System
+
+    cfg = _merge_dataclass(Config(), {"use_loop": True, "loop": {
+        "use_loop": True,
+        "netvlad_weights": os.path.join(HERE, "weights",
+                                        "vlad_rendered.npz")}})
+    ds = RenderedDataset(cfg, n_frames=SLAM_FRAMES, seed=5, noise_seed=0)
+    sys_ = System(cfg, params=state, device=dev)
+    spans = keep_samples(sys_.timer)
+    process = sys_.process
+    per_frame, events = [], []
+
+    def timed_process(raw):
+        n0 = sys_.looper.n_loops_closed
+        t0 = time.perf_counter()
+        process(raw)
+        per_frame.append((time.perf_counter() - t0) * 1e3)
+        if sys_.looper.n_loops_closed > n0:
+            events.append((len(per_frame) - 1, spans["loop"][-1]))
+
+    sys_.process = timed_process
+    # the loop closer's stages, timed on the host by frame (each ends in a
+    # readback, so its wall time holds its device work)
+    stage_ms = {}
+
+    def timed_stage(name, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                key = (len(per_frame), name)
+                stage_ms[key] = (stage_ms.get(key, 0.0)
+                                 + (time.perf_counter() - t0) * 1e3)
+        return run
+
+    for name in LOOP_STAGES:
+        setattr(sys_.looper, name, timed_stage(name,
+                                               getattr(sys_.looper, name)))
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sys_.spin(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches("SLAM + loop", SLAM_KERNELS)
+
+    rep = sys_.report()
+    ts, poses = sys_.trajectory()
+    tg, pg = ds.gt_trajectory()
+    ate = ate_sim3(ts, poses[:, :3, 3], tg, pg[:, :3, 3])
+    pf = np.asarray(per_frame)
+    lines = [f"SLAM + loop: {len(frames)} frames of the rendered room (seed "
+             f"5) at {cfg.camera.width}x{cfg.camera.height}, K="
+             f"{cfg.runtime.max_keypoints}, {cfg.extractor.dtype}, NetVLAD "
+             f"weights/vlad_rendered.npz | {smi}",
+             f"SLAM + loop: wall {wall:.3f} s, "
+             f"{wall * 1e3 / len(frames):.2f} ms/frame | "
+             + span_line("System.process ms/frame", pf, smi)]
+    for tag in ("tracking/frame", "tracking/total", "mapping", "loop"):
+        lines.append(span_line(f"SLAM + loop span {tag}",
+                               spans.get(tag, [0.0]), smi))
+    # every frame whose loop span is long: the loop events, and detections
+    # whose Sim3 attempts found no loop
+    closed = {frame for frame, _ in events}
+    for frame, ms in enumerate(spans["loop"]):
+        if ms >= LOOP_SLOW_MS or frame in closed:
+            what = "loop closed" if frame in closed else "no loop"
+            parts = ", ".join(f"{name.strip('_')} "
+                              f"{stage_ms.get((frame, name), 0.0):.2f}"
+                              for name in LOOP_STAGES)
+            lines.append(f"SLAM + loop: frame {frame} ({what}): loop span "
+                         f"{ms:.2f} ms ({parts} ms), System.process "
+                         f"{pf[frame]:.2f} ms | {smi}")
+    lines.append(f"SLAM + loop: loops (current KF, matched KF) "
+                 f"{sys_.looper.loops} | {smi}")
+    lines.append(f"SLAM + loop result: {json.dumps(rep, default=float)} | "
+                 f"ATE rmse {ate.rmse:.4f} mean {ate.mean:.4f} over "
+                 f"{ate.n_pairs} frames, loop closing off (phase 6) "
+                 f"{ate_off:.4f} | {smi}")
+    log("\n".join(lines))
+    if not (rep["n_loops_closed"] >= 1 and rep["n_lost"] == 0
+            and rep["n_frames"] >= 0.8 * len(frames) and ate.rmse < 0.2):
+        raise AssertionError("SLAM + loop gates failed (a loop closed, 0 "
+                             "LOST, >= 80 % tracked, ATE rmse < 0.2)")
+    wrong = {k: launches[k] for k in LOOP_KERNELS
+             if launches[k] != len(frames)}
+    if wrong or launches["match"] < 1:
+        raise AssertionError(f"SLAM + loop launches for {len(frames)} "
+                             f"frames: {launches}")
     return launches
 
 
@@ -1662,9 +1796,12 @@ def main(argv) -> int:
     log(f"step: {json.dumps(stats)} | {smi}")
     log("\n".join(profile_step(step, carry)))
     stamp("frontend and step")
-    slam = slam_phase(state, dev, smi, rooms[5])
+    slam, ate_off = slam_phase(state, dev, smi, rooms[5])
     stamp("SLAM")
     fleet = fleet_phase(state, dev, smi, rooms, gt)
+    stamp("fleet")
+    loop_phase(state, dev, smi, rooms[5], ate_off)
+    stamp("SLAM + loop")
     # each kernel's launches on the path that runs it: the SLAM path for
     # its kernels, the bf16 frontend with conv_packing="pair1t" for pair1t,
     # desc_method="pallas" for desc_dense, the bf16 fleet for pair1

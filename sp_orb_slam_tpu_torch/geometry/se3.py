@@ -49,7 +49,9 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     cos_t = (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2] - 1.0) * 0.5
     s2 = (vee * vee).sum(-1) * 0.25  # sin^2(theta)
     small = s2 < 1e-10
-    sin_t = torch.sqrt(torch.where(small, 1.0, s2))
+    # a tensor branch: under torch.func.jacfwd a number gives a float64
+    # tangent
+    sin_t = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))
     theta = torch.atan2(sin_t, cos_t)
     scale = torch.where(small, 0.5 + s2 / 12.0, theta / (2.0 * sin_t))
     return scale[..., None] * vee

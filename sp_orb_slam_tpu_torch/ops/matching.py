@@ -200,3 +200,46 @@ def fuse_candidates(mp_desc, mp_proj_uv, mp_valid, kp_desc, kp_uv, kp_valid,
             & kp_valid[None, :])
     best, idx, _ = masked_best2(pairwise_dist(mp_desc, kp_desc), mask)
     return torch.where(mp_valid & (best <= TH_LOW), idx, -1), best
+
+
+def _sim3_side(pos_c, valid, desc, dmin, dmax, sR, t, kp_uv, kp_desc,
+               kp_valid, K_intr, bounds, radius, th):
+    """One direction of SearchBySim3: transform map points (camera frame)
+    through the Sim3, project, gate, best-L2 window search."""
+    with full_f32():
+        pc = pos_c @ sR.T + t[None, :]
+    z = pc[:, 2]
+    zs = torch.where(z.abs() < 1e-9, 1e-9, z)
+    proj = torch.stack([K_intr[0] * pc[:, 0] / zs + K_intr[2],
+                        K_intr[1] * pc[:, 1] / zs + K_intr[3]], -1)
+    dist3 = torch.linalg.vector_norm(pc, dim=-1)
+    ok = (valid & (z > 0)
+          & (proj[:, 0] >= bounds[0]) & (proj[:, 0] <= bounds[1])
+          & (proj[:, 1] >= bounds[2]) & (proj[:, 1] <= bounds[3])
+          & (dist3 >= dmin) & (dist3 <= dmax))
+    mask = window_mask(proj, ok, kp_uv, kp_valid, radius)
+    best, idx, _ = masked_best2(pairwise_dist(desc, kp_desc), mask)
+    return torch.where(ok & (best <= th), idx, -1)
+
+
+def search_by_sim3(mp1_pos_c1, mp1_valid, mp1_desc, mp1_dmin, mp1_dmax,
+                   kp1_uv, kp1_desc, kp1_valid,
+                   mp2_pos_c2, mp2_valid, mp2_desc, mp2_dmin, mp2_dmax,
+                   kp2_uv, kp2_desc, kp2_valid,
+                   sR21, t21, sR12, t12, K_intr, bounds,
+                   *, radius: float = 7.5):
+    """SearchBySim3Override (sp_matcher_loop.cpp:7-220): mutual Sim3
+    projection growth between two keyframes' map points.  Forward: KF1 map
+    points (camera-1 frame) through sR21/t21 into image 2, best keypoint
+    within `radius` at L2 <= 0.7; backward: KF2 map points through
+    sR12/t12 into image 1.  The caller keeps the agreeing pairs
+    (vnMatch2[vnMatch1[i1]] == i1, :211-223) and excludes already matched
+    slots through the validity masks.  Returns (match1 (N1,) -> kp2 index
+    or -1, match2 (N2,) -> kp1 index or -1)."""
+    m1 = _sim3_side(mp1_pos_c1, mp1_valid, mp1_desc, mp1_dmin, mp1_dmax,
+                    sR21, t21, kp2_uv, kp2_desc, kp2_valid, K_intr, bounds,
+                    radius, TH_HIGH)
+    m2 = _sim3_side(mp2_pos_c2, mp2_valid, mp2_desc, mp2_dmin, mp2_dmax,
+                    sR12, t12, kp1_uv, kp1_desc, kp1_valid, K_intr, bounds,
+                    radius, TH_HIGH)
+    return m1, m2

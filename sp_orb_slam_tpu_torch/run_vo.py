@@ -1,6 +1,7 @@
 """The port's command line: run the offline SLAM pipeline over a dataset.
 
-    python -m sp_orb_slam_tpu_torch.run_vo --dataset synthetic [--device cpu]
+    python -m sp_orb_slam_tpu_torch.run_vo --dataset synthetic [--loop] \
+        [--device cpu]
     python -m sp_orb_slam_tpu_torch.run_vo --dataset rendered \
         --weights weights/sp_rendered.npz [--max-frames N]
     python -m sp_orb_slam_tpu_torch.run_vo ... --save-map map.npz
@@ -47,6 +48,9 @@ def main(argv=None) -> int:
                     help="trajectory output dir (default: the config's "
                     "output_path where it sets one, else out/run_vo/)")
     ap.add_argument("--max-frames", type=int, default=None)
+    ap.add_argument("--loop", action="store_true",
+                    help="enable loop closing (synthetic: a closed-loop "
+                         "trajectory)")
     ap.add_argument("--synthetic-frames", type=int, default=120)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -68,6 +72,8 @@ def main(argv=None) -> int:
                                    ("seq", args.seq),
                                    ("verbose", args.verbose or None))
                  if v is not None}
+    if args.loop:
+        overrides["use_loop"] = True
     cfg = load_config(args.config, overrides)
     output = args.output or default_output(cfg)
 
@@ -86,7 +92,8 @@ def main(argv=None) -> int:
     from sp_orb_slam_tpu_torch.slam.system import System
 
     if cfg.dataset == "synthetic":
-        dataset = SyntheticDataset(cfg, n_frames=args.synthetic_frames)
+        dataset = SyntheticDataset(cfg, n_frames=args.synthetic_frames,
+                                   loop=args.loop)
     else:
         dataset = make_dataset(cfg)
     system = System(cfg, params=params, device=args.device)

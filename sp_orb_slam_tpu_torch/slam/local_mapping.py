@@ -9,9 +9,10 @@ host-side.
 
 The port of the JAX package's slam/local_mapping.py: the synchronous
 `spin_once` drive, the init-time global BA and the offline half of the
-stop/release protocol (localization mode stops the mapper).  The mapping
-thread waits for the online slice, the staged global BA and the
-loop-closing hand-off for the loop-closing slice.
+stop/release protocol (localization mode and loop correction stop the
+mapper), the staged global-BA write-back of loop closing and the hand-off
+of each processed keyframe to the loop closer.  The mapping thread waits
+for the online slice.
 """
 
 from __future__ import annotations
@@ -195,6 +196,81 @@ def apply_global_ba_direct(world: Map, problem: dict, res) -> None:
             world.pool.pos[p] = points_np[i]
 
 
+def apply_global_ba_staged(world: Map, problem: dict, res,
+                           loop_kf_id: int) -> None:
+    """Staged write-back with spanning-tree propagation: the commit phase of
+    RunGlobalBundleAdjustment (loop_closer_vlad.cpp:771-849).
+
+    Call holding the map lock with the mapper stopped.  Keyframes and
+    points created while the solve ran are not in the problem: a new KF
+    inherits its correction through its spanning-tree parent
+    (T_child_gba = T_child * T_parent^-1 * T_parent_gba, :783-795); a new
+    point re-projects through its reference KF's pre/post-GBA pose pair
+    (:815-845)."""
+    from collections import deque
+
+    world.ba_epoch += 1
+    poses_np = np.asarray(res.poses)
+    points_np = np.asarray(res.points)
+    fixed = problem["fixed"]
+    # stage the solved poses (mTcwGBA / mnBAGlobalForKF)
+    for k, i in problem["kf_index"].items():
+        kf = world.keyframes.get(k)
+        if kf is None:
+            continue
+        kf.Tcw_gba = kf.Tcw.copy() if fixed[i] else poses_np[i].copy()
+        kf.ba_global_for = loop_kf_id
+    # BFS the spanning tree from the origin (FIFO like the reference's
+    # lpKFtoCheck): children created during GBA chain through their
+    # parent's current (pre-commit) pose, then the parent commits
+    queue = deque([world.kf_origin])
+    while queue:
+        kid = queue.popleft()
+        kf = world.keyframes.get(kid)
+        if kf is None:
+            continue
+        Twc = np.linalg.inv(kf.Tcw.astype(np.float64))
+        for c in kf.children:
+            child = world.keyframes.get(c)
+            if child is None:
+                continue
+            if child.ba_global_for != loop_kf_id:
+                if kf.Tcw_gba is None:
+                    continue  # parent untouched: nothing to chain
+                Tchildc = child.Tcw.astype(np.float64) @ Twc
+                child.Tcw_gba = (Tchildc @ kf.Tcw_gba.astype(np.float64)
+                                 ).astype(np.float32)
+                child.ba_global_for = loop_kf_id
+            queue.append(c)
+        if kf.Tcw_gba is not None and kf.ba_global_for == loop_kf_id:
+            kf.Tcw_bef_gba = kf.Tcw.copy()
+            kf.set_pose(kf.Tcw_gba)
+    # points: participants take the solved position; points born during the
+    # solve re-project through their reference keyframe's pose pair
+    pt_index = problem["pt_index"]
+    pt_obj = problem["pt_obj"]
+    for p, mp in list(world.points.items()):
+        if mp.bad:
+            continue
+        i = pt_index.get(p)
+        # identity check: a pool slot culled and re-allocated during the
+        # solve holds a different point, which takes the re-projection path
+        if i is not None and pt_obj.get(p) is mp:
+            world.pool.pos[p] = points_np[i]
+            world.update_normal_and_depth(mp)
+            continue
+        ref = world.keyframes.get(mp.ref_kf)
+        if (ref is None or ref.ba_global_for != loop_kf_id
+                or ref.Tcw_bef_gba is None):
+            continue
+        Tb = ref.Tcw_bef_gba.astype(np.float64)
+        Xc = Tb[:3, :3] @ world.pool.pos[p].astype(np.float64) + Tb[:3, 3]
+        Twc_new = np.linalg.inv(ref.Tcw.astype(np.float64))
+        world.pool.pos[p] = (Twc_new[:3, :3] @ Xc
+                             + Twc_new[:3, 3]).astype(np.float32)
+        world.update_normal_and_depth(mp)
+
+
 def run_global_ba(world: Map, kernels: TrackingKernels, iters: int = 20,
                   caps=None) -> None:
     """Synchronous GlobalBundleAdjustemnt (optimizer.cpp:42-229) — the
@@ -223,6 +299,7 @@ class LocalMapping:
         self.abort_ba = False
         self.current_kf: Optional[KeyFrame] = None
         self._pace = 0  # offline not-accepting countdown (offline_kf_pace)
+        self.looper = None  # set by System when use_loop
         self.depth_filter = (DepthFilter(cfg, world, kernels.K_np)
                              if cfg.mapping.depth_filter.enabled else None)
 
@@ -276,6 +353,8 @@ class LocalMapping:
                 self.local_bundle_adjustment(kf)
             if self.cfg.mapping.culling_kf:
                 self.keyframe_culling(kf)
+        if self.looper is not None:
+            self.looper.insert_keyframe(kf.kf_id)
 
     def spin_once(self) -> None:
         """local_mapper.cpp:47-127 (deterministic offline drive mode).

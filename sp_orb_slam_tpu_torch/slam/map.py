@@ -5,14 +5,16 @@ type/keyframe.{h,cpp}, type/map.{h,cpp}) with arrays instead of pointer
 graphs: map points live in contiguous numpy pools (positions, descriptors,
 normals) so per-frame device uploads are cheap slices, while the structural
 graph (observations, covisibility, spanning tree) stays in plain dicts.
-There are no mutexes: the port runs the reference's deterministic offline
-mode (spinOnce after each frame, system.cpp:176-178).
+One map-wide re-entrant lock (`Map.update_lock`, mMutexMapUpdate) is held
+by loop detection and correction; the port runs the reference's
+deterministic offline mode (spinOnce after each frame,
+system.cpp:176-178), where nothing else contends for it.
 
 The port keeps its own copy of the JAX package's slam/map.py; the device
-descriptor banks are torch tensors on the system's device.  The loop-closing
-state (staged global-BA poses, the erase pin) and the place-recognition
-hook wait for the loop-closing slice; loop edges are kept for map
-save/load (slam/serialize.py).
+descriptor banks are torch tensors on the system's device.  Keyframes
+carry the loop-closing state (loop edges, the erase pin, the staged
+global-BA poses), and `Map.global_desc_fn` is the place-recognition hook
+run at keyframe promotion.
 
 Semantics reproduced (citations):
 - distinctive descriptor = observation descriptor minimizing the median L2
@@ -33,6 +35,7 @@ Semantics reproduced (citations):
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -177,14 +180,23 @@ class KeyFrame:
         self.Tcw = orthonormalized_pose(frame.Tcw)
         self.mp_ids = frame.mp_ids.copy()
         self.bad = False
+        # loop-closing pin (SetNotErase/SetErase, keyframe.cpp): while set,
+        # keyframe culling skips this keyframe, so the detect -> Sim3 ->
+        # correct window cannot lose the current or matched keyframe
+        self.not_erase = False
         # covisibility
         self.connections: Dict[int, int] = {}   # kf_id -> weight
         self.ordered_neighbors: List[int] = []  # by weight desc
         self.parent: int = -1
         self.children: set = set()
         self.first_connection = True
-        self.loop_edges: set = set()             # kept by map save/load
+        self.loop_edges: set = set()
         self.global_desc: Optional[np.ndarray] = frame.global_desc
+        # staged global-BA results (optimizer.cpp mTcwGBA / mTcwBefGBA),
+        # committed by local_mapping.apply_global_ba_staged
+        self.Tcw_gba: Optional[np.ndarray] = None
+        self.Tcw_bef_gba: Optional[np.ndarray] = None
+        self.ba_global_for = -1
 
     @property
     def Ow(self) -> np.ndarray:
@@ -209,6 +221,13 @@ class Map:
         self.keyframes: Dict[int, KeyFrame] = {}
         self.next_kf_id = 0
         self.kf_origin: int = -1
+        # the map-update lock (mMutexMapUpdate, map.h:70-74), held by loop
+        # detection and correction (loop_closer_vlad.cpp:545)
+        self.update_lock = threading.RLock()
+        # optional FrameData -> (D,) global-descriptor callable run at
+        # keyframe promotion (add_keyframe); None = descriptors come from
+        # the dataset only
+        self.global_desc_fn = None
         # bumped on every BA write-back: the tracker widens its local-map
         # search window for the first frame after a map adjustment
         self.ba_epoch = 0
@@ -345,6 +364,12 @@ class Map:
     # -- keyframes ----------------------------------------------------------
 
     def add_keyframe(self, frame: FrameData) -> KeyFrame:
+        # place-recognition hook (System wires it when loop closing computes
+        # global descriptors, models/netvlad.py)
+        if self.global_desc_fn is not None:
+            gd = self.global_desc_fn(frame)
+            if gd is not None:
+                frame.global_desc = gd
         kf = KeyFrame(self.next_kf_id, frame)
         self.next_kf_id += 1
         self.keyframes[kf.kf_id] = kf
@@ -387,7 +412,7 @@ class Map:
     def erase_keyframe(self, kf: KeyFrame) -> None:
         """KeyFrame::SetBadFlag (keyframe.cpp): drop observations, detach
         covisibility, re-parent children through best surviving covisibles."""
-        if kf.bad or kf.kf_id == self.kf_origin:
+        if kf.bad or kf.not_erase or kf.kf_id == self.kf_origin:
             return
         for idx, pid in enumerate(kf.mp_ids):
             if pid >= 0:
@@ -478,4 +503,11 @@ class Map:
         return n_common, max(total, 1)
 
     def clear(self) -> None:
+        # the System-installed hook survives a reset (else every post-reset
+        # keyframe lacks a global descriptor and loop closing goes silently
+        # dead), and so does the lock, which a caller may hold
+        hook = self.global_desc_fn
+        lock = self.update_lock
         self.__init__(self.pool.capacity, self.pool.device)
+        self.global_desc_fn = hook
+        self.update_lock = lock

@@ -6,10 +6,11 @@ mapping on one device, drives frames through them in the reference's
 deterministic offline mode (mapping spins synchronously after each frame,
 system.cpp:176-178) and exports TUM / KITTI / EuRoC trajectories by
 re-chaining relative poses through (possibly culled) reference keyframes
-(system_helper.cpp:89-318).  Map save/load (slam/serialize.py) and
-localization mode are here; N systems can share one TrackingKernels
-(slam/fleet.py).  Loop closing and the online threads wait for their
-slices.
+(system_helper.cpp:89-318).  Map save/load (slam/serialize.py),
+localization mode and loop closing (slam/loop_closing.py, with NetVLAD
+place recognition computed on the device at keyframe promotion) are here;
+N systems can share one TrackingKernels (slam/fleet.py).  The online
+threads wait for their slice.
 """
 
 from __future__ import annotations
@@ -100,10 +101,9 @@ class System:
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device available; pass device='cpu' "
                                "to run the system on the CPU")
-        for what, on in (("use_loop (loop closing)", cfg.use_loop),
-                         ("online (threaded mapping)", cfg.online)):
-            if on:
-                raise NotImplementedError(f"{what} is not ported")
+        if cfg.online:
+            raise NotImplementedError("online (threaded mapping) is not "
+                                      "ported")
         self.cfg = cfg
         self.device = dev
         self.map = Map(device=dev)
@@ -114,6 +114,15 @@ class System:
                         else TrackingKernels(cfg, device=dev))
         self.mapper = LocalMapping(cfg, self.map, self.kernels)
         self.tracker = Tracking(cfg, self.map, self.kernels, self.mapper)
+        self.looper = None
+        if cfg.use_loop:
+            from sp_orb_slam_tpu_torch.slam.loop_closing import LoopClosing
+
+            self.looper = LoopClosing(cfg, self.map, self.kernels,
+                                      self.mapper)
+            self.mapper.looper = self.looper
+            if cfg.loop.global_desc_source != "dataset":
+                self.map.global_desc_fn = self._make_global_desc_fn()
         self.frame_id = 0
         # mode toggles (the reference's global::b_* flags, consumed by
         # System::spin/run, system.cpp:141-233), applied before a frame
@@ -130,6 +139,29 @@ class System:
             self._extract = make_extractor(cfg, params, device=dev)
             self._preprocess = build_preprocess(cfg, dev)
         self.timer = Timer()
+
+    def _make_global_desc_fn(self):
+        """NetVLAD place recognition on the system's device
+        (models/netvlad.py), run at keyframe promotion by Map.add_keyframe
+        and by relocalization: "auto" fills only frames the dataset left
+        without a descriptor, "vlad" always recomputes
+        (config.py LoopConfig.global_desc_source)."""
+        from sp_orb_slam_tpu_torch.models import netvlad
+
+        lc = self.cfg.loop
+        params = (netvlad.load_params(lc.netvlad_weights)
+                  if lc.netvlad_weights else
+                  netvlad.init_params(n_clusters=lc.netvlad_clusters,
+                                      out_dim=lc.global_desc_dim))
+        vlad = netvlad.NetVLAD(params, device=self.device)
+
+        def fn(frame):
+            if frame.global_desc is not None and lc.global_desc_source != "vlad":
+                return None
+            valid = torch.from_numpy(frame.valid).to(self.device)
+            return vlad(frame.desc_dev, valid).cpu().numpy()
+
+        return fn
 
     # ------------------------------------------------------------ frame feed
 
@@ -201,6 +233,9 @@ class System:
             return
         with self.timer.span("mapping"):
             self.mapper.spin_once()
+        if self.looper is not None:
+            with self.timer.span("loop"):
+                self.looper.spin_once()
         self.frame_id += 1
 
     # ------------------------------------------------------- mode toggles
@@ -285,6 +320,15 @@ class System:
     def reset(self) -> None:
         """System::resetSystem (system_helper.cpp:12-52): a fresh map and
         tracker; the trajectory records survive."""
+        if self.looper is not None:
+            # LoopClosing::RequestReset: drop queued KFs, the
+            # place-recognition database, the consistency state and any
+            # in-flight GBA before its result could land on the cleared map
+            self.looper._stop_gba()
+            self.looper.queue.clear()
+            self.looper.db.clear()
+            self.looper.consistent_groups.clear()
+            self.looper.last_loop_kf = -10 ** 9
         self.map.clear()
         self.mapper.queue.clear()
         self.mapper.recent_pids.clear()
@@ -315,9 +359,18 @@ class System:
         from sp_orb_slam_tpu_torch.slam.serialize import load_map
         from sp_orb_slam_tpu_torch.slam.tracking import LOST
 
+        hook = self.map.global_desc_fn
         self.map = load_map(path, mp_capacity=self.map.pool.capacity,
                             device=self.device)
+        self.map.global_desc_fn = hook
         self.mapper = LocalMapping(self.cfg, self.map, self.kernels)
+        if self.looper is not None:
+            from sp_orb_slam_tpu_torch.slam.loop_closing import LoopClosing
+
+            self.looper.shutdown()
+            self.looper = LoopClosing(self.cfg, self.map, self.kernels,
+                                      self.mapper)
+            self.mapper.looper = self.looper
         only_tracking = self.tracker.only_tracking
         fleet_bank = self.tracker.fleet_bank_mode
         self.tracker = Tracking(self.cfg, self.map, self.kernels,
@@ -386,4 +439,6 @@ class System:
         rep = self.tracker.report()
         rep.update(n_keyframes=self.map.n_keyframes(),
                    n_points=self.map.n_points())
+        if self.looper is not None:
+            rep["n_loops_closed"] = self.looper.n_loops_closed
         return rep

@@ -759,14 +759,17 @@ class Tracking:
         recognition candidates -> per-candidate match + pose fit): try the
         current reference KF, then the most recent KFs, then the best
         global-descriptor candidates, and re-anchor on the first that
-        yields a valid pose.  The global-descriptor channel uses the
-        descriptors a dataset provides; the computed ones come with loop
-        closing."""
+        yields a valid pose."""
         cands: List[int] = []
         if self.ref_kf >= 0:
             cands.append(self.ref_kf)
         alive = sorted(k for k, kf in self.map.keyframes.items()
                        if not kf.bad)
+        if frame.global_desc is None and self.map.global_desc_fn is not None:
+            # image datasets compute the place-recognition descriptor only
+            # at keyframe promotion (Map.add_keyframe); a LOST query frame
+            # needs it now, or the far-candidate channel below is dead
+            frame.global_desc = self.map.global_desc_fn(frame)
         cands += [k for k in reversed(alive[-5:]) if k not in cands]
         if frame.global_desc is not None:
             scored = []

@@ -45,6 +45,8 @@ import sp_orb_slam_tpu_torch.slam.system
 import sp_orb_slam_tpu_torch.slam.serialize, sp_orb_slam_tpu_torch.slam.fleet
 import sp_orb_slam_tpu_torch.eval.ate, sp_orb_slam_tpu_torch.utils.timing
 import sp_orb_slam_tpu_torch.run_vo
+import sp_orb_slam_tpu_torch.optim.sim3, sp_orb_slam_tpu_torch.models.netvlad
+import sp_orb_slam_tpu_torch.slam.loop_closing
 
 def banned(name):
     # the port's own name starts with "sp_orb_slam_tpu": match the JAX
@@ -64,7 +66,8 @@ def test_port_imports_no_jax():
                          check=True).stdout.splitlines()
     assert out[0] == "[]", out[0]
     for mod in ("extractor", "slam.system", "run_vo", "ops.cuda_desc",
-                "ops.cuda_pair1", "slam.serialize", "slam.fleet"):
+                "ops.cuda_pair1", "slam.serialize", "slam.fleet",
+                "optim.sim3", "models.netvlad", "slam.loop_closing"):
         assert f"sp_orb_slam_tpu_torch.{mod}" in out[1], mod
 
 
@@ -99,6 +102,76 @@ def test_slam_entry_points_default_to_the_card(entry):
             "load_map": lambda: serialize.load_map("no_such_map.npz")}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call[entry]()
+
+
+def _loop_config():
+    from sp_orb_slam_tpu_torch.config import _merge_dataclass
+
+    return _merge_dataclass(Config(), {"use_loop": True,
+                                       "loop": {"use_loop": True}})
+
+
+@pytest.mark.parametrize("entry", ["system_loop", "netvlad", "run_vo_loop"])
+def test_loop_entry_points_default_to_the_card(entry):
+    """System with loop closing, the NetVLAD module and run_vo --loop run
+    on the card unless told otherwise, and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the no-card path")
+    from sp_orb_slam_tpu_torch import run_vo
+    from sp_orb_slam_tpu_torch.models import netvlad
+    from sp_orb_slam_tpu_torch.slam.system import System
+
+    call = {"system_loop": lambda: System(_loop_config()),
+            "netvlad": lambda: netvlad.NetVLAD(
+                netvlad.init_params(0, out_dim=64)),
+            "run_vo_loop": lambda: run_vo.main(
+                ["--dataset", "synthetic", "--loop", "--synthetic-frames",
+                 "2"])}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call[entry]()
+
+
+def test_loop_modules_run_on_the_given_device():
+    """NetVLAD keeps its buffers and computes on the device it is given
+    (the meta device: nothing may move to the CPU), and the System's loop
+    closer and place-recognition hook run on the System's device."""
+    import numpy as np
+
+    from sp_orb_slam_tpu_torch.models import netvlad
+    from sp_orb_slam_tpu_torch.slam.system import System
+
+    model = netvlad.NetVLAD(netvlad.init_params(0, out_dim=64),
+                            device="meta")
+    assert {b.device.type for b in model.buffers()} == {"meta"}
+    out = model(_meta(3, 16, 256), _meta(3, 16, dtype=torch.bool))
+    assert out.device.type == "meta" and out.shape == (3, 64)
+
+    sys_ = System(_loop_config(), device="cpu")
+    assert sys_.looper.device == sys_.kernels.device == torch.device("cpu")
+    assert sys_.mapper.looper is sys_.looper
+    from sp_orb_slam_tpu_torch.slam.frame import FrameData
+
+    K = 8
+    f = FrameData(frame_id=0, timestamp=0.0, uv=np.zeros((K, 2), np.float32),
+                  score=np.zeros(K, np.float32),
+                  response=np.zeros(K, np.float32), valid=np.ones(K, bool),
+                  cov2_inv=np.ones((K, 2), np.float32),
+                  occ_grid=np.zeros((2, 2), np.int32), count=K,
+                  desc_dev=torch.nn.functional.normalize(
+                      torch.ones(K, 256), dim=-1),
+                  dust_dev=None, occ_grid_dev=None)
+    gd = sys_.map.global_desc_fn(f)
+    assert isinstance(gd, np.ndarray) and gd.shape == (4096,)
+
+
+def test_online_mode_still_raises():
+    import dataclasses
+
+    from sp_orb_slam_tpu_torch.slam.system import System
+
+    with pytest.raises(NotImplementedError, match="online"):
+        System(dataclasses.replace(_loop_config(), online=True),
+               device="cpu")
 
 
 def test_run_vo_writes_inside_the_repository_by_default():
