@@ -50,17 +50,17 @@ only, for the named kernels or all seven, printing the kernel rows and no
    of the held-out rendered room at the default configuration (752x480,
    K=896, float32): gates on LOST frames, the tracked share and the Sim3
    ATE; ms per frame of `System.process` and of each `Timer` span over an
-   unprofiled spin of the first 217 frames; the device's idle share over
-   the last 3 frames, spun under torch.profiler;
+   unprofiled spin of the first 219 frames; the device's idle share over
+   the last frame, spun under torch.profiler;
 7. the fleet: `StreamFleet(cfg, 8, params, device="cuda")` in bfloat16
    (conv_packing="auto": the pair1 kernel) over 8 held-out rendered rooms
-   (texture seeds 4-11, 100 frames each, the last stream ending after 90):
+   (texture seeds 4-11, 80 frames each, the last stream ending after 72):
    per-stream gates on LOST frames, the tracked share and the Sim3 ATE;
    launch gates (pair1, nms, cov and desc_sparse once per tick, pair1t
    never, match at least once per stream); ms per tick and the spans over
-   the unprofiled ticks, the idle share over the last 3 ticks profiled
+   the unprofiled ticks, the idle share over the last tick profiled
    apart; then the localization leg: stream 0's map saved, a new 8-stream
-   fleet loads it in localization mode and runs 40 ticks of seed 4's
+   fleet loads it in localization mode and runs 20 ticks of seed 4's
    frames, gated on relocalization, the share of ticks with a pose and the
    frozen map, with the spans of its slowest tick beside its median's;
 8. SLAM with loop closing: `System(cfg, params, device="cuda")` with
@@ -71,10 +71,25 @@ only, for the named kernels or all seven, printing the kernel rows and no
    match at least once; ms per frame of `System.process` and the spans,
    the `loop` span of each frame that runs a Sim3 attempt or a loop
    event, split by the loop closer's stages, the loops' keyframe ids, and
-   the ATE beside phase 6's (loop closing off).
+   the ATE beside phase 6's (loop closing off);
+9. online SLAM with loop closing: phase 8's System with `online=True`,
+   mapping, loop closing and the post-loop global BA on their own threads
+   beside tracking, `warmup()` timed, then `spin` over phase 6's 220
+   frames from memory (it ends with `shutdown`: drained, joined): ms per
+   frame of `System.process` (tracking alone) and of the wall, the
+   mapping thread's ms per keyframe and its BA solves, the loops, the GBA
+   solve and commit by thread, the shutdown's drain, the ATE beside
+   phases 6 and 8; gates: 0 LOST, >= 176 of 220 tracked, ATE < 0.2,
+   every thread joined and queue empty, no backend exception, NMS / cov /
+   desc_sparse launched once a frame and match once an init attempt
+   counted from zero after warmup, no `TrackingKernels` stage called that
+   warmup did not call (`spy_stages`), and a global BA committed from its
+   own thread (where no loop closed, a forced leg runs it over the
+   online map, the caller taking the map lock while it solves).
 
 Every path is driven with the launch counters zeroed just before it and
-read just after, and fails if a kernel of that path never launched.  The
+read just after (phase 9: after its warmup), and fails if a kernel of that
+path never launched.  The
 rendered frames of phases 6 and 7 are made before phase 2, in one process
 per CPU core.
 Prints a `kernels` JSON line, the card's name and power limit, and as the
@@ -101,6 +116,9 @@ H100_F32 = 67e12     # f32 FLOP/s outside the tensor cores
 H100_BYTES = 3.35e12  # HBM bytes/s
 STEP_BLOCKS, STEP_BLOCK = 5, 10   # timed blocks x steps per block
 PROFILE_STEPS, PROFILE_ROWS = 5, 60  # profiled steps, kernel rows printed
+# device_split's windows: the profiler can return no device event for a
+# window several times in a row
+PROFILE_WINDOWS = 8
 
 
 def log(*a):
@@ -137,14 +155,15 @@ def device_split(fn, iters=20):
     device events over `iters` calls after one warm-up call; no host time
     and no gap between launches counts.  A window in which some device
     event did not come back a multiple of `iters` times (the profiler can
-    drop events) is taken again."""
+    drop events, or, rarely, return none in a window) is taken again, up
+    to PROFILE_WINDOWS windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -157,8 +176,9 @@ def device_split(fn, iters=20):
         if sum(split.values()) > 0 and all(ev.count % iters == 0
                                            for ev in rows):
             return split
-    raise AssertionError(f"profiler: device events missing in 3 windows; "
-                         f"the last: {[(ev.key, ev.count) for ev in rows]}")
+    raise AssertionError(f"profiler: device events missing in "
+                         f"{PROFILE_WINDOWS} windows; the last: "
+                         f"{[(ev.key, ev.count) for ev in rows]}")
 
 
 def short_name(kernel_name):
@@ -1239,7 +1259,9 @@ def profile_step(step, carry):
 # ---------------------------------------------------------------- phase 6
 
 SLAM_FRAMES = 220
-PROFILE_FRAMES = 3    # the spin's last frames, profiled apart from the rest
+PROFILE_FRAMES = 1    # the spin's last frames, profiled apart from the rest
+#                       (3 until phase 9 came: its post-processing costs
+#                       ~18 s a frame)
 SLAM_ROWS = 12        # kernel and CPU-op rows printed
 
 
@@ -1485,18 +1507,312 @@ def loop_phase(state, dev, smi, frames, ate_off):
     if wrong or launches["match"] < 1:
         raise AssertionError(f"SLAM + loop launches for {len(frames)} "
                              f"frames: {launches}")
-    return launches
+    return launches, float(ate.rmse)
+
+
+# ---------------------------------------------------------------- phase 9
+
+ONLINE_KERNELS = ("nms", "cov", "desc_sparse")  # once a frame after warmup
+ONLINE_TRACKED = 176  # frames tracked of SLAM_FRAMES (phase 6's 80 %)
+ONLINE_WAIT = 120.0   # seconds any wait of the phase may take
+# the TrackingKernels stages a run may call (tests/test_torch_warmup.py)
+STAGES = ("gather_rows", "dust_track", "dust_track_batch", "fused_track",
+          "motion_track", "motion_track_batch", "ref_track", "reloc_track",
+          "reloc_track_batch", "local_map_track", "local_map_track_wide",
+          "local_map_track_batch", "init_two_view", "triangulate_pair_batch",
+          "fuse", "fuse_batch", "fetch_features_host",
+          "fetch_features_host_batch")
+
+
+def spy_stages(kernels):
+    """Wrap the stage methods of `kernels` to count each call by variant
+    in the returned Counter: the stage, its window (`wide`) where it has
+    one, and for the mapper's batches whether the rows ran unbatched."""
+    import collections
+    import functools
+
+    seen = collections.Counter()
+    for name in STAGES:
+        fn = getattr(kernels, name)
+
+        @functools.wraps(fn)
+        def spy(*args, _name=name, _fn=fn, **kwargs):
+            key = (_name, kwargs.get("wide", False))
+            if _name in ("triangulate_pair_batch", "fuse_batch"):
+                key = (_name, len(args[0]) == 1)
+            seen[key] += 1
+            return _fn(*args, **kwargs)
+
+        setattr(kernels, name, spy)
+    return seen
+
+
+def timed_calls(obj, name, log_to):
+    """Wrap `obj.name` to append (thread name, ms, start s) of each call to
+    `log_to`; returns the original for restoring."""
+    import threading
+
+    fn = getattr(obj, name)
+
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log_to.append((threading.current_thread().name,
+                           (time.perf_counter() - t0) * 1e3, t0))
+
+    setattr(obj, name, run)
+    return fn
+
+
+def online_config():
+    """Phase 8's configuration (defaults, `use_loop` with the fitted
+    NetVLAD checkpoint) in the online mode."""
+    from sp_orb_slam_tpu_torch.config import Config, _merge_dataclass
+
+    return _merge_dataclass(Config(), {"online": True, "use_loop": True,
+                                       "loop": {
+        "use_loop": True,
+        "netvlad_weights": os.path.join(HERE, "weights",
+                                        "vlad_rendered.npz")}})
+
+
+def online_phase(state, dev, smi, frames, ate_off, ate_loop):
+    """The online mode on the card: phase 8's System with mapping and loop
+    closing on their own threads beside tracking, warmed up, spun over
+    phase 6's 220 frames from memory, then shut down (drained and joined).
+    Where no loop closed, a forced leg runs the transient global BA over
+    the online map on its own thread, the caller taking the map lock
+    while it solves.  Returns the phase's numbers for `online_gates`.
+    `ate_off` / `ate_loop`: phases 6 and 8's ATE on the same frames."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.eval.ate import ate_sim3
+    from sp_orb_slam_tpu_torch.io.render import RenderedDataset
+    from sp_orb_slam_tpu_torch.slam import local_mapping as lm_mod
+    from sp_orb_slam_tpu_torch.slam import loop_closing as lc_mod
+    from sp_orb_slam_tpu_torch.slam.system import System
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = online_config()
+    ds = RenderedDataset(cfg, n_frames=SLAM_FRAMES, seed=5, noise_seed=0)
+    sys_ = System(cfg, params=state, device=dev)
+    stages = spy_stages(sys_.kernels)
+    sync()
+    t0 = time.perf_counter()
+    sys_.warmup()
+    sync()
+    warmup_s = time.perf_counter() - t0
+    warmed = set(stages)
+    stages.clear()
+
+    # the backend's timings, wrapped from here (the package has no
+    # instrumentation of its own): each keyframe's pipeline on the mapping
+    # thread, each BA solve by thread, the GBA solve and its commit
+    pipeline, solves, gba_solve, gba_commit = [], [], [], []
+    timed_calls(sys_.mapper, "_pipeline", pipeline)
+    real = {name: timed_calls(mod, name, log_to) for mod, name, log_to in (
+        (lm_mod, "_solve_ba", solves),
+        (lc_mod, "solve_global_ba", gba_solve),
+        (lc_mod, "apply_global_ba_staged", gba_commit))}
+    per_frame, frame_start, shutdown_s = [], [], []
+    process, shutdown = sys_.process, sys_.shutdown
+
+    def timed_process(raw):
+        t1 = time.perf_counter()
+        process(raw)
+        per_frame.append((time.perf_counter() - t1) * 1e3)
+        frame_start.append(t1)
+
+    def timed_shutdown(*a, **kw):
+        t1 = time.perf_counter()
+        try:
+            return shutdown(*a, **kw)
+        finally:
+            shutdown_s.append(time.perf_counter() - t1)
+
+    sys_.process, sys_.shutdown = timed_process, timed_shutdown
+    try:
+        zero_launches()
+        sync()
+        t0 = time.perf_counter()
+        sys_.spin(frames)  # ends with shutdown: drained and joined
+        sync()
+        wall = time.perf_counter() - t0
+        from sp_orb_slam_tpu_torch.ops import _build
+
+        launches = dict(_build.LAUNCHES)
+        n_init = sum(n for (name, _), n in stages.items()
+                     if name == "init_two_view")
+        spun = set(stages)
+        looper = sys_.looper
+        loops = list(looper.loops)
+        joined = {"mapping": sys_.mapper._thread is None,
+                  "loop": looper._thread is None,
+                  "global_ba": looper._gba_thread is None}
+        queues = {"mapping": len(sys_.mapper.queue),
+                  "loop": len(looper.queue)}
+        errors = [repr(e) for e in (sys_.mapper.error, looper.error) if e]
+        stamped = sum(kf.ba_global_for >= 0
+                      for kf in sys_.map.keyframes.values() if not kf.bad)
+        rep = sys_.report()
+        ts, poses = sys_.trajectory()
+        tg, pg = ds.gt_trajectory()
+        ate = ate_sim3(ts, poses[:, :3, 3], tg, pg[:, :3, 3])
+        forced = None
+        if not any(c[0] == "global_ba" for c in gba_commit):
+            forced = forced_gba(sys_, lc_mod, lc_mod.solve_global_ba)
+    finally:
+        for (mod, name), fn in zip(((lm_mod, "_solve_ba"),
+                                    (lc_mod, "solve_global_ba"),
+                                    (lc_mod, "apply_global_ba_staged")),
+                                   real.values()):
+            setattr(mod, name, fn)
+    map_solves = [ms for name, ms, _ in solves if name == "local_mapping"]
+    kf_ms = [ms for _, ms, _ in pipeline]
+    pf = np.asarray(per_frame)
+    # each frame's share of its time that the mapping thread spent inside
+    # a keyframe's pipeline: the frames it fully overlaps against those it
+    # does not touch (the GIL's share of tracking's time)
+    busy = [(t0, t0 + ms / 1e3) for _, ms, t0 in pipeline]
+    share = np.asarray([sum(max(0.0, min(t0 + ms / 1e3, b) - max(t0, a))
+                            for a, b in busy) / max(ms / 1e3, 1e-9)
+                        for t0, ms in zip(frame_start, per_frame)])
+    idle, full = pf[share == 0.0], pf[share >= 0.999]
+    lines = [f"online: {len(frames)} frames of the rendered room (seed 5) at "
+             f"{cfg.camera.width}x{cfg.camera.height}, K="
+             f"{cfg.runtime.max_keypoints}, {cfg.extractor.dtype}, "
+             f"use_loop, mapping and loop closing on their own threads | "
+             f"{smi}",
+             f"online: warmup {warmup_s:.3f} s | {smi}",
+             f"online: wall {wall:.3f} s, {wall * 1e3 / len(frames):.2f} "
+             f"ms/frame (drain and joins included) | "
+             + span_line("System.process (tracking alone) ms/frame", pf, smi),
+             f"online: first frame after warmup {pf[0]:.2f} ms | {smi}",
+             span_line("online: mapping thread ms per keyframe (_pipeline)",
+                       kf_ms or [0.0], smi),
+             span_line("online: local BA solves on the mapping thread ms",
+                       map_solves or [0.0], smi)
+             + f"; the first {map_solves[0] if map_solves else 0.0:.2f}",
+             span_line("online: System.process on frames the mapping "
+                       "thread did not touch", idle if len(idle) else [0.0],
+                       smi),
+             span_line("online: System.process on frames inside a "
+                       "keyframe's pipeline", full if len(full) else [0.0],
+                       smi),
+             f"online: {len(kf_ms)} keyframes mapped, {len(loops)} loops "
+             f"closed {loops}; global BA solves and commits (thread, ms; "
+             f"the forced leg's too where it ran): "
+             f"{[(n, round(ms, 2)) for n, ms, _ in gba_solve]}, "
+             f"{[(n, round(ms, 2)) for n, ms, _ in gba_commit]} | {smi}",
+             f"online: shutdown (drain + joins) {shutdown_s[0]:.3f} s; threads "
+             f"joined {joined}, queues {queues}, backend errors {errors}; "
+             f"keyframes stamped by a committed GBA {stamped}",
+             f"online: launches after warmup {launches}; init attempts "
+             f"{n_init}; stages called after warmup that warmup did not "
+             f"call: {sorted(spun - warmed)}",
+             f"online result: {json.dumps(rep, default=float)} | ATE rmse "
+             f"{ate.rmse:.4f} mean {ate.mean:.4f} over {ate.n_pairs} frames; "
+             f"offline (phase 6) {ate_off:.4f}, offline + loop (phase 8) "
+             f"{ate_loop:.4f} | {smi}"]
+    if forced is not None:
+        lines.append(f"online: no loop closed, forced GBA leg: {forced}")
+    log("\n".join(lines))
+    return dict(rep=rep, ate=float(ate.rmse), joined=joined, queues=queues,
+                errors=errors, launches=launches, n_init=n_init,
+                unwarmed=sorted(spun - warmed), gba_commit=gba_commit,
+                stamped=stamped, forced=forced, n_frames=len(frames))
+
+
+def forced_gba(sys_, lc_mod, real_solve):
+    """The transient global BA over the online map on its own thread (as
+    tests/test_torch_async_gba.py drives it on the CPU): the threads
+    restart, `_launch_gba` starts the GBA thread, the caller takes the map
+    lock while it solves, then the commit lands and shutdown drains and
+    joins.  Returns what the gates read."""
+    import threading
+
+    solving, proceed = threading.Event(), threading.Event()
+
+    def gated(problem, k, iters=10):
+        solving.set()
+        if not proceed.wait(ONLINE_WAIT):
+            raise TimeoutError("forced GBA: never released")
+        return real_solve(problem, k, iters=iters)
+
+    solve, lc_mod.solve_global_ba = lc_mod.solve_global_ba, gated
+    try:
+        sys_.start_threads()
+        live = [k for k, kf in sys_.map.keyframes.items() if not kf.bad]
+        loop_kf = max(live)
+        sys_.looper._launch_gba(loop_kf)
+        if not solving.wait(ONLINE_WAIT):
+            raise AssertionError("forced GBA: the solve never started")
+        lock_free = sys_.map.update_lock.acquire(timeout=ONLINE_WAIT)
+        if lock_free:
+            sys_.map.update_lock.release()
+        thread = sys_.looper._gba_thread.name
+        proceed.set()
+        sys_.shutdown(timeout=ONLINE_WAIT)
+    finally:
+        proceed.set()
+        lc_mod.solve_global_ba = solve
+    stamped = sum(kf.ba_global_for == loop_kf
+                  for kf in sys_.map.keyframes.values() if not kf.bad)
+    return dict(loop_kf=loop_kf, thread=thread, lock_free_mid_solve=lock_free,
+                participants_stamped=stamped, live=len(live),
+                joined=sys_.looper._gba_thread is None
+                and sys_.looper._thread is None
+                and sys_.mapper._thread is None)
+
+
+def online_gates(res):
+    """Phase 9's gates; raises on the first that fails."""
+    rep, n = res["rep"], res["n_frames"]
+    if not (rep["n_lost"] == 0 and rep["n_frames"] >= ONLINE_TRACKED
+            and res["ate"] < 0.2):
+        raise AssertionError(f"online gates failed (0 LOST, >= "
+                             f"{ONLINE_TRACKED} tracked, ATE < 0.2): {rep}")
+    if not all(res["joined"].values()) or any(res["queues"].values()):
+        raise AssertionError(f"online: threads {res['joined']}, queues "
+                             f"{res['queues']}")
+    if res["errors"]:
+        raise AssertionError(f"online: backend errors {res['errors']}")
+    la = res["launches"]
+    wrong = {k: la[k] for k in ONLINE_KERNELS if la[k] != n}
+    if wrong or la["match"] != res["n_init"] or res["n_init"] < 1:
+        raise AssertionError(f"online launches {la} for {n} frames and "
+                             f"{res['n_init']} init attempts")
+    if res["unwarmed"]:
+        raise AssertionError(f"online: stages warmup did not call: "
+                             f"{res['unwarmed']}")
+    f = res["forced"]
+    if f is None:
+        if not (any(c[0] == "global_ba" for c in res["gba_commit"])
+                and res["stamped"] > 0):
+            raise AssertionError("online: no GBA committed from its thread")
+    elif not (f["thread"] == "global_ba" and f["lock_free_mid_solve"]
+              and f["participants_stamped"] == f["live"] and f["joined"]):
+        raise AssertionError(f"online: forced GBA leg failed: {f}")
 
 
 # ---------------------------------------------------------------- phase 7
 
 FLEET_SEEDS = tuple(range(4, 12))  # held-out rooms (training used 0-3)
-FLEET_FRAMES = 100    # ticks; each stream runs the first frames of the
+# cut from 100, 90, 3 and 40 for the time limit when phase 9 came: a
+# stream's first 13-17 frames initialize, so 80 keep the tracked-share
+# gate within reach; the localization leg stays inside stream 0's map
+FLEET_FRAMES = 80     # ticks; each stream runs the first frames of the
 #                       SLAM_FRAMES-frame trajectory (phase 6's)
-FLEET_SHORT = 90      # the last stream ends here: idle rows for 10 ticks
-FLEET_PROFILE = 3     # the last ticks, profiled apart from the rest
+FLEET_SHORT = 72      # the last stream ends here: idle rows for 8 ticks
+FLEET_PROFILE = 1     # the last ticks, profiled apart from the rest
 FLEET_TRACKED = 0.75  # tracked share gate of each stream
-LOC_TICKS = 40        # localization leg: stream i runs frames 20+2i ..
+LOC_TICKS = 20        # localization leg: stream i runs frames 20+2i ..
 FLEET_KERNELS = ("pair1", "nms", "cov", "desc_sparse", "match")
 FLEET_SPANS = ("fleet/features", "fleet/dust", "fleet/coarse",
                "fleet/local", "fleet/retry", "fleet/fine")
@@ -1800,8 +2116,11 @@ def main(argv) -> int:
     stamp("SLAM")
     fleet = fleet_phase(state, dev, smi, rooms, gt)
     stamp("fleet")
-    loop_phase(state, dev, smi, rooms[5], ate_off)
+    _, ate_loop = loop_phase(state, dev, smi, rooms[5], ate_off)
     stamp("SLAM + loop")
+    online = online_phase(state, dev, smi, rooms[5], ate_off, ate_loop)
+    online_gates(online)
+    stamp("online SLAM + loop")
     # each kernel's launches on the path that runs it: the SLAM path for
     # its kernels, the bf16 frontend with conv_packing="pair1t" for pair1t,
     # desc_method="pallas" for desc_dense, the bf16 fleet for pair1

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches of each kernel by its wrapper (a plain count: set an entry to 0,
-# run, read it back)
+# run, read it back; `launch` adds under `_lock`)
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
@@ -129,7 +129,8 @@ def launch(name: str, symbol: str, argtypes, *args,
     if err != 0:
         raise RuntimeError(f"{name} kernel: {symbol} returned CUDA error "
                            f"{err}")
-    LAUNCHES[name] += 1
+    with _lock:  # the online mode's threads all launch
+        LAUNCHES[name] += 1
 
 
 def noop(device: torch.device) -> None:

@@ -1,17 +1,23 @@
-"""The port's command line: run the offline SLAM pipeline over a dataset.
+"""The port's command line: run the SLAM pipeline over a dataset.
 
     python -m sp_orb_slam_tpu_torch.run_vo --dataset synthetic [--loop] \
         [--device cpu]
     python -m sp_orb_slam_tpu_torch.run_vo --dataset rendered \
         --weights weights/sp_rendered.npz [--max-frames N]
+    python -m sp_orb_slam_tpu_torch.run_vo --config cfg.yaml \
+        --data-path DATA --seq MH_05_difficult --weights W.npz
     python -m sp_orb_slam_tpu_torch.run_vo ... --save-map map.npz
     python -m sp_orb_slam_tpu_torch.run_vo ... --load-map map.npz --localization
 
 Writes traj.txt / kf.txt (TUM format) under --output (default: the
 config's output_path where a config sets one, else out/run_vo/ beside the
 package), prints the tracking report with the Sim3 ATE against the
-dataset's ground truth as one JSON line, and the timer table on stderr.
-Runs on the card unless --device cpu is given.
+dataset's ground truth (where it has one) as one JSON line, and the
+timer table on stderr.  The dataset (euroc, tsukuba, an export tree,
+synthetic or rendered), `--data-path` and `--seq` override the config's;
+the online mode (`online: true`) comes from the YAML config, as in the
+JAX package's command line.  Runs on the card unless --device cpu is
+given.
 """
 
 from __future__ import annotations
@@ -39,9 +45,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="learned VO/SLAM on PyTorch")
     ap.add_argument("--config", help="YAML config (reference cfg/*.yaml schema)")
     ap.add_argument("--dataset", default=None,
-                    help="synthetic | rendered (overrides the config)")
+                    help="euroc | tsukuba | *_export | synthetic | rendered "
+                         "(overrides the config)")
+    ap.add_argument("--data-path", default=None,
+                    help="the dataset's root directory")
     ap.add_argument("--seq", default=None,
-                    help="rendered: the room's texture seed")
+                    help="the sequence under --data-path (rendered: the "
+                         "room's texture seed)")
     ap.add_argument("--weights", default=None,
                     help="SuperPoint checkpoint (.npz/.pt) for image datasets")
     ap.add_argument("--output", default=None,
@@ -69,6 +79,7 @@ def main(argv=None) -> int:
     from sp_orb_slam_tpu_torch.config import load_config
 
     overrides = {k: v for k, v in (("dataset", args.dataset),
+                                   ("data_path", args.data_path),
                                    ("seq", args.seq),
                                    ("verbose", args.verbose or None))
                  if v is not None}
@@ -83,7 +94,8 @@ def main(argv=None) -> int:
         from sp_orb_slam_tpu_torch.models.weights import load_checkpoint
 
         params = load_checkpoint(weights)
-    elif cfg.dataset != "synthetic":
+    elif not (cfg.dataset == "synthetic"
+              or cfg.dataset.lower().endswith("export")):
         raise SystemExit("image datasets need --weights")
 
     from sp_orb_slam_tpu_torch.eval.ate import ate_sim3
@@ -109,10 +121,16 @@ def main(argv=None) -> int:
     system.save_trajectory_tum(os.path.join(output, "traj.txt"))
     system.save_keyframe_trajectory_tum(os.path.join(output, "kf.txt"))
     report = system.report()
-    ts_gt, poses_gt = dataset.gt_trajectory()
     ts_est, poses_est = system.trajectory()
-    if len(ts_est) >= 3:
-        res = ate_sim3(ts_est, poses_est[:, :3, 3], ts_gt, poses_gt[:, :3, 3])
+    gt = getattr(dataset, "gt_trajectory", None)
+    try:
+        ts_gt, gt_pose = gt() if gt is not None else (None, None)
+    except FileNotFoundError:  # a tree without its ground-truth file
+        ts_gt, gt_pose = None, None
+    if ts_gt is not None and len(ts_est) >= 3:
+        # Twc poses (synthetic, rendered) or positions (gt.txt)
+        gt_pos = gt_pose[:, :3, 3] if gt_pose.ndim == 3 else gt_pose
+        res = ate_sim3(ts_est, poses_est[:, :3, 3], ts_gt, gt_pos)
         report["ate_rmse"] = res.rmse
         report["ate_mean"] = res.mean
     print(json.dumps(report, default=float))

@@ -18,8 +18,11 @@ batched extraction instead of N copies of a batch-1 frontend:
 - in bank mode the batched stages gather each stream's point descriptors
   from its pool's device bank inside the batch (kernels.BankRows).
 
-Host-side tracking state machines and the mappers run per stream in turn,
-offline (each mapper spins after its stream's frame).  `load_map` is the
+Host-side tracking state machines run per stream in turn.  Offline, each
+mapper spins after its stream's frame; in the online mode (`cfg.online`)
+each stream's mapping (and loop closing) runs on its own threads, started
+by the stream's first tick and joined by `shutdown`, and the prepasses
+hold each stream's map lock while they read its map.  `load_map` is the
 build-once, localize-many server.  The JAX fleet's multi-chip stream mesh
 is not ported: there is one card.
 """
@@ -57,9 +60,6 @@ class StreamFleet:
             raise NotImplementedError(
                 "sharding the fleet over a device mesh is not ported: the "
                 "port batches streams on one card")
-        if cfg.online:
-            raise NotImplementedError("online (threaded mapping) is not "
-                                      "ported")
         dev = torch.device(device)
         self.cfg = cfg
         self.device = dev
@@ -153,6 +153,9 @@ class StreamFleet:
             sysi._apply_pending_toggles()
             frames[i] = sysi._frame_from_injected(raws[i])
             frames[i].global_desc = raws[i].global_desc
+        if self.cfg.online:  # each live stream's backend threads
+            for i in frames:
+                self.systems[i].start_threads()
 
     def _coarse(self, frames: dict) -> None:
         """Phase 1 of every stream, then the motion fallback of the streams
@@ -235,10 +238,13 @@ class StreamFleet:
             t = self.systems[i].tracker
             if t.state != tr.OK or (t.only_tracking and t.vo_mode):
                 continue
-            # the single-stream paths scrub replaced points before the dust
-            # gather reads the last frame's bindings (R1)
-            t._check_replaced_in_last_frame()
-            p = t.prepare_dust(frame, bank_desc=True)
+            # online, the stream's mapper runs beside this: the prep walks
+            # its point pool and keyframes under the map lock
+            with t.map.update_lock:
+                # the single-stream paths scrub replaced points before the
+                # dust gather reads the last frame's bindings (R1)
+                t._check_replaced_in_last_frame()
+                p = t.prepare_dust(frame, bank_desc=True)
             if p is None:
                 t.staged_dust = (frame, None)
             else:
@@ -262,7 +268,8 @@ class StreamFleet:
             t = self.systems[i].tracker
             if t._phase is None or not t._phase[0]:
                 continue        # init frame, or every coarse stage failed
-            prep = t.prepare_local_map(frame, bank_desc=True)
+            with t.map.update_lock:
+                prep = t.prepare_local_map(frame, bank_desc=True)
             groups[prep["wide"]].append((i, t, frame, prep))
         for wide, grp in groups.items():
             if not grp:
@@ -337,16 +344,19 @@ class StreamFleet:
         return [tuple(r) for r in rows]
 
     def warmup(self) -> None:
-        """Run the batched extraction + feature readback and every batched
-        stage (dust, local narrow and wide, motion, reloc, in bank mode)
-        once at fleet width on dummy inputs, so kernel builds and first-use
-        allocations leave the timed ticks."""
+        """Run the batched extraction + feature readback, every
+        single-stream stage (TrackingKernels.warmup: the per-stream
+        cascade, init, the mappers' stages and BA) and every batched stage
+        (dust, local narrow and wide, motion, reloc, in bank mode) once at
+        fleet width on dummy inputs, so kernel builds, library loads and
+        first-use allocations leave the timed ticks."""
         cfg = self.cfg
         if self._extract is not None:  # injected-feature fleets never extract
             H, W = cfg.camera.height, cfg.camera.width
             feats = self._extract_batch([np.zeros((H, W), np.uint8)])
             self.kernels.fetch_features_host_batch(feats, self.n)
         cap = self.systems[0].map.pool.capacity
+        self.kernels.warmup(pool_capacity=cap)
         K = cfg.runtime.max_keypoints
         P = cfg.runtime.dust_points_cap
         L = cfg.runtime.local_points_cap
@@ -396,19 +406,27 @@ class StreamFleet:
         iters = [iter(d) for d in datasets]
         done = [False] * self.n
         n_ticks = 0
-        while not all(done):
-            raws: List[Optional[RawFrame]] = []
-            for i, it in enumerate(iters):
-                raw = None if done[i] else next(it, None)
-                done[i] = raw is None
-                raws.append(raw)
-            if all(r is None for r in raws):
-                break
-            self.tick(raws)
-            n_ticks += 1
-            if max_frames is not None and n_ticks >= max_frames:
-                break
-        self.shutdown()
+        ok = False
+        try:
+            while not all(done):
+                raws: List[Optional[RawFrame]] = []
+                for i, it in enumerate(iters):
+                    raw = None if done[i] else next(it, None)
+                    done[i] = raw is None
+                    raws.append(raw)
+                if all(r is None for r in raws):
+                    break
+                self.tick(raws)
+                n_ticks += 1
+                if max_frames is not None and n_ticks >= max_frames:
+                    break
+            ok = True
+        finally:
+            if ok:
+                self.shutdown()
+            elif self.cfg.online:  # a tick raised: join, undrained
+                for s in self.systems:
+                    s._stop_threads()
 
     def load_map(self, path: str, localization: bool = True) -> None:
         """Multi-camera localization server: every stream loads the same
@@ -422,8 +440,19 @@ class StreamFleet:
                 s.activate_localization_mode()
 
     def shutdown(self) -> None:
-        """Nothing runs in the background offline: kept for the JAX
-        package's serving API."""
+        """Online: drain and join every stream's backend threads (each
+        System.shutdown, which re-raises a backend failure).  Offline
+        nothing runs in the background."""
+        if not self.cfg.online:
+            return
+        failed = None
+        for s in self.systems:  # every stream joined before any raise
+            try:
+                s.shutdown()
+            except BaseException as e:
+                failed = failed or e
+        if failed is not None:
+            raise failed
 
     def report(self) -> List[dict]:
         return [s.report() for s in self.systems]

@@ -791,3 +791,100 @@ class TrackingKernels:
         """Every target-KF row's fuse candidates, one packed upload and
         readback per chunk of 8 rows."""
         return self._batch_chunked(self._fuse_fn, self.fuse_layout, rows)
+
+    # ---- warmup ------------------------------------------------------------
+
+    def warmup(self, pool_capacity: int = 4096, ba: bool = True) -> None:
+        """Run every single-stream stage once at its production shapes on
+        dummy inputs (JAX TrackingKernels.warmup): the descriptor gathers,
+        dust, fused and fused-wide, motion, ref, reloc at the keypoint and
+        the local-map caps, local and local-wide, init, triangulation and
+        fuse (alone and batched) and, with `ba`, the local BA at its caps
+        and the init-time global BA at its smallest power-of-two sizes.
+        The card's kernel builds, the CUDA libraries' loads and the
+        allocator's first blocks then leave the first frames.  The inputs
+        are degenerate (zeros, a few valid entries): only shapes count."""
+        cfg = self.cfg
+        K = cfg.runtime.max_keypoints
+        P = cfg.runtime.dust_points_cap
+        L = cfg.runtime.local_points_cap
+        hc, wc = cfg.grid_h, cfg.grid_w
+        dev = self.device
+        eye = np.eye(4, dtype=np.float32)
+
+        def val(n):
+            v = np.zeros(n, bool)
+            v[:4] = True
+            return v
+
+        val_k, val_d, val_l = val(K), val(P), val(L)
+        uv = np.zeros((K, 2), np.float32)
+        cov = np.ones((K, 2), np.float32)
+        pos_d = np.zeros((P, 3), np.float32)
+        pos_l = np.zeros((L, 3), np.float32)
+        pos_k = np.zeros((K, 3), np.float32)
+        normal_l = np.zeros((L, 3), np.float32)
+        dust = torch.zeros((hc, wc), device=dev)
+        occ = torch.full((hc, wc), -1, dtype=torch.int32, device=dev)
+        desc_k = torch.zeros((K, 256), device=dev)
+        # the gathers on their production (bank, rows) shapes: the pool bank
+        # into dust / local rows, a keyframe's descriptors into its
+        # observation rows (the ref-KF and reloc paths)
+        bank = torch.zeros((pool_capacity, 256), device=dev)
+        desc_p = self.gather_rows(bank, np.zeros(P, np.int32), val_d)
+        desc_l = self.gather_rows(bank, np.zeros(L, np.int32), val_l)
+        desc_kf = self.gather_rows(desc_k, np.zeros(K, np.int32), val_k)
+
+        self.dust_track(eye, pos_d, desc_p, val_d, dust, occ, desc_k, uv,
+                        cov, val_k)
+        self.motion_track(eye, pos_l, desc_l, val_l, desc_k, uv, cov, val_k)
+        self.ref_track(eye, pos_k, desc_kf, val_k, desc_k, uv, cov, val_k)
+        T0s = np.tile(eye, (16, 1, 1))
+        self.reloc_track(T0s, pos_k, desc_kf, val_k, desc_k, uv, cov, val_k)
+        # the local map's multi-start rescue: the reloc stage at the
+        # local-map cap
+        self.reloc_track(T0s, pos_l, desc_l, val_l, desc_k, uv, cov, val_k)
+        largs = (eye, pos_l, desc_l, normal_l, val_l, np.zeros(L, bool),
+                 np.full(K, -1, np.int64), desc_k, uv, cov, val_k)
+        self.local_map_track(*largs)
+        self.local_map_track_wide(*largs)
+        if cfg.tracking.fused_ok_path:
+            fargs = (eye, pos_d, desc_p, val_d, dust, occ, pos_l, desc_l,
+                     normal_l, val_l, np.full(P, -1, np.int32), desc_k, uv,
+                     cov, val_k)
+            self.fused_track(*fargs, wide=False)
+            self.fused_track(*fargs, wide=True)
+        self.init_two_view(desc_k, uv, val_k, uv, desc_k, uv, val_k,
+                           torch.zeros((cfg.runtime.init_ransac_iters, 8),
+                                       dtype=torch.long))
+        tri_row = (eye, eye, uv, desc_k, cov, val_k, uv, desc_k, cov, val_k)
+        fuse_row = (eye, pos_l, desc_l, normal_l, np.zeros(L, np.float32),
+                    np.zeros(L, np.float32), val_l, uv, desc_k, val_k)
+        self.fuse(*fuse_row)
+        # the mapper's batches: one row runs unbatched, more under vmap in
+        # chunks of up to 8
+        for w in (1, 2, 8):
+            self.triangulate_pair_batch([tri_row] * w)
+            self.fuse_batch([fuse_row] * w)
+        if not ba:
+            return
+        from sp_orb_slam_tpu_torch.slam.local_mapping import _solve_ba
+
+        rt = cfg.runtime
+
+        def problem(C, P, O, fixed):
+            return (np.tile(eye, (C, 1, 1)), fixed,
+                    np.zeros((P, 3), np.float32), np.zeros(P, bool),
+                    np.zeros(O, np.int32), np.zeros(O, np.int32),
+                    np.zeros((O, 2), np.float32), np.ones((O, 2), np.float32),
+                    np.zeros(O, bool))
+
+        # the mapper's local BA at its caps, then the init-time global BA
+        # at its likely power-of-two sizes
+        C = rt.ba_kfs_cap
+        _solve_ba(self, problem(C, rt.ba_points_cap, rt.ba_obs_cap,
+                                np.ones(C, bool)),
+                  iters1=5, iters2=10, two_phase=True, robust=True)
+        for Pb, Ob in ((128, 256), (256, 512), (512, 1024), (1024, 2048)):
+            _solve_ba(self, problem(2, Pb, Ob, np.asarray([True, False])),
+                      iters1=20, two_phase=False, robust=True)

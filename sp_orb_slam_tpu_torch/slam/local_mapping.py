@@ -8,15 +8,26 @@ matching run in the device stages (slam/kernels.py); graph surgery stays
 host-side.
 
 The port of the JAX package's slam/local_mapping.py: the synchronous
-`spin_once` drive, the init-time global BA and the offline half of the
-stop/release protocol (localization mode and loop correction stop the
-mapper), the staged global-BA write-back of loop closing and the hand-off
-of each processed keyframe to the loop closer.  The mapping thread waits
-for the online slice.
+`spin_once` drive, the mapping thread of the online mode with the
+stop/accept/interruptBA protocol, the init-time global BA, the staged
+global-BA write-back of loop closing and the hand-off of each processed
+keyframe to the loop closer.
+
+The online mode's threads share one device and one CUDA stream: each
+backend thread makes the device and stream of the thread that started it
+current on entry (`enter_device`), so the card runs their work in launch
+order, and the map lock orders the launches that touch the map's device
+tensors.  A backend thread that raises records the exception (`error`)
+and ends; the System re-raises it at its next frame or at shutdown
+(`raise_backend_error`), and `drain` raises when its deadline passes
+with work still queued: a deliberate difference from the JAX package,
+whose dead thread leaves `drain` to return silently.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -29,6 +40,26 @@ from sp_orb_slam_tpu_torch.slam.depth_filter import DepthFilter
 from sp_orb_slam_tpu_torch.slam.kernels import TrackingKernels, upload
 from sp_orb_slam_tpu_torch.slam.map import KeyFrame, Map
 from sp_orb_slam_tpu_torch.utils.precision import full_f32
+
+
+def enter_device(device: torch.device, stream) -> None:
+    """Make `device` and `stream` (None off the card) current in a new
+    thread, which starts on device 0 and its default stream."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.cuda.set_stream(stream)
+
+
+def current_stream(device: torch.device):
+    """The calling thread's current stream on `device` (None off the
+    card): the stream a backend thread it starts will launch on."""
+    return torch.cuda.current_stream(device) if device.type == "cuda" else None
+
+
+def raise_backend_error(name: str, error: Optional[BaseException]) -> None:
+    """Re-raise the exception that ended backend thread `name`."""
+    if error is not None:
+        raise RuntimeError(f"the {name} thread failed: {error!r}") from error
 
 
 def _assemble_ba(world: Map, kf_ids: List[int], fixed_ids: List[int],
@@ -282,9 +313,16 @@ def run_global_ba(world: Map, kernels: TrackingKernels, iters: int = 20,
 
 
 class LocalMapping:
-    """The reference's deterministic offline drive (system.cpp:176-178):
-    `spin_once` runs the pipeline synchronously after each frame.  The
-    tracker reads `accepting` (offline KF pacing) and `stopped`."""
+    """Two drive modes, like the reference (system.cpp:94-97, 176-178):
+    `spin_once` runs the pipeline synchronously after each frame (the
+    deterministic offline mode), `start`/`run` spins it on its own thread
+    with the stop/accept/interruptBA protocol (local_mapper.h:42-56,
+    local_mapper.cpp:129-229).  The map-wide `map.update_lock` serializes
+    every map-mutating stage against tracking; the keyframe queue is a
+    deque mutated only by append/popleft, so there is no second lock.  The
+    local-BA solve runs outside the map lock and its result is discarded
+    when a new keyframe interrupted it (mbAbortBA, optimizer.cpp:660-671).
+    The tracker reads `accepting` (KF pacing) and `stopped`."""
 
     def __init__(self, cfg: Config, world: Map, kernels: TrackingKernels):
         import collections
@@ -295,11 +333,16 @@ class LocalMapping:
         self.queue = collections.deque()
         self.recent_pids: List[int] = []
         self.stopped = False
+        self.stop_requested = False
         self.accepting = True
         self.abort_ba = False
         self.current_kf: Optional[KeyFrame] = None
         self._pace = 0  # offline not-accepting countdown (offline_kf_pace)
         self.looper = None  # set by System when use_loop
+        self._thread = None
+        self._shutdown = False
+        self._busy = False  # the thread holds a popped keyframe
+        self.error: Optional[BaseException] = None  # what ended the thread
         self.depth_filter = (DepthFilter(cfg, world, kernels.K_np)
                              if cfg.mapping.depth_filter.enabled else None)
 
@@ -312,21 +355,39 @@ class LocalMapping:
     def interrupt_ba(self) -> None:
         self.abort_ba = True
 
-    # stop/release protocol (RequestStop/isStopped/Release,
-    # local_mapper.cpp:~300): offline there is no thread to reach the
-    # check, so a request stops the mapper at once and a stopped mapper's
-    # spin_once does nothing
+    # stop/accept protocol (RequestStop/isStopped/Release,
+    # local_mapper.cpp:~300; localization mode and loop correction freeze
+    # the mapper with it)
     def request_stop(self) -> None:
+        self.stop_requested = True
         self.abort_ba = True
-        self.stopped = True
+        if self._thread is None:
+            self.stopped = True  # offline: no thread to reach the check
 
     def release(self) -> None:
+        self.stop_requested = False
         self.stopped = False
 
-    def wait_until_stopped(self) -> bool:
-        return self.stopped
+    def wait_until_stopped(self, timeout: float = 10.0) -> bool:
+        """True once the thread has parked (at once offline); False when
+        `timeout` seconds pass first.  Raises if the thread died."""
+        t0 = time.monotonic()
+        while not self.stopped:
+            raise_backend_error("local mapping", self.error)
+            if self._thread is None or time.monotonic() - t0 > timeout:
+                return self.stopped
+            time.sleep(1e-3)
+        return True
 
-    # ----------------------------------------------------------- drive mode
+    def stop(self, timeout: float = 10.0) -> None:
+        """request_stop + wait_until_stopped, raising when the thread does
+        not park within `timeout` seconds."""
+        self.request_stop()
+        if not self.wait_until_stopped(timeout):
+            raise TimeoutError(f"the local mapping thread did not stop "
+                               f"within {timeout} s")
+
+    # ----------------------------------------------------------- drive modes
 
     def _pop_keyframe(self) -> Optional[KeyFrame]:
         while True:
@@ -340,19 +401,24 @@ class LocalMapping:
 
     def _pipeline(self, kf: KeyFrame) -> None:
         """One keyframe through the mapping pipeline
-        (local_mapper.cpp:47-127)."""
+        (local_mapper.cpp:47-127 offline / :129-229 online: the same
+        stages, the map-mutating ones under the map lock)."""
+        lock = self.map.update_lock
         self.current_kf = kf
-        self.process_new_keyframe(kf)
-        self.map_point_culling(kf)
-        self.create_new_map_points(kf)
+        with lock:
+            self.process_new_keyframe(kf)
+            self.map_point_culling(kf)
+            self.create_new_map_points(kf)
         if not self.queue:
-            self.search_in_neighbors(kf)
+            with lock:
+                self.search_in_neighbors(kf)
         self.abort_ba = False
-        if not self.queue and not self.stopped:
+        if not self.queue and not (self.stopped or self.stop_requested):
             if self.map.n_keyframes() > 2:
                 self.local_bundle_adjustment(kf)
             if self.cfg.mapping.culling_kf:
-                self.keyframe_culling(kf)
+                with lock:
+                    self.keyframe_culling(kf)
         if self.looper is not None:
             self.looper.insert_keyframe(kf.kf_id)
 
@@ -361,8 +427,8 @@ class LocalMapping:
 
         Offline pacing (offline_kf_pace): after ingesting a keyframe the
         mapper reports not-accepting for the next `pace` frames, emulating
-        the online backend's processing latency — otherwise the KF
-        policy's `idle` term fires every frame and creates consecutive
+        the online backend's processing latency; otherwise the KF policy's
+        `idle` term fires every frame and creates consecutive
         near-zero-baseline keyframe bursts."""
         if self.stopped:
             return
@@ -374,7 +440,7 @@ class LocalMapping:
             self._pipeline(kf)
             processed = True
         pace = self.cfg.mapping.offline_kf_pace
-        if pace > 0:
+        if self._thread is None and pace > 0:
             if processed:
                 self._pace = pace
                 self.accepting = False
@@ -383,6 +449,82 @@ class LocalMapping:
                 self.accepting = self._pace <= 0
             else:
                 self.accepting = True
+
+    def start(self) -> None:
+        """Spawn the mapping thread (online mode; system.cpp:94-97) on the
+        caller's device and stream."""
+        if self._thread is not None:
+            return
+        self._shutdown = False
+        self._thread = threading.Thread(
+            target=self.run, args=(current_stream(self.k.device),),
+            name="local_mapping", daemon=True)
+        self._thread.start()
+
+    def run(self, stream=None) -> None:
+        """LocalMapping::Run (local_mapper.cpp:129-229).  An exception ends
+        the thread and is kept in `error`."""
+        try:
+            enter_device(self.k.device, stream)
+            while not self._shutdown:
+                if self.stop_requested:
+                    self.stopped = True
+                    time.sleep(1e-3)
+                    continue
+                self.stopped = False
+                self._busy = True
+                kf = self._pop_keyframe()
+                if kf is None:
+                    self._busy = False
+                    self.accepting = True
+                    time.sleep(1e-3)
+                    continue
+                self.accepting = False
+                self._pipeline(kf)
+                self._busy = False
+                if not self.queue:
+                    self.accepting = True
+        except Exception as e:  # re-raised by the System
+            self.error = e
+        finally:
+            self._busy = False
+
+    def drain(self, timeout: float = 60.0) -> None:
+        """Block until the queue is empty and the thread idle (or parked by
+        a stop request); raise when `timeout` seconds pass first or when
+        the thread died.  Nothing to wait for without a thread."""
+        t0 = time.monotonic()
+        # the queue before the busy flag: the thread sets the flag before
+        # it pops, so an empty queue read first cannot miss a held KF
+        while (self.queue or self._busy) and not self.stopped:
+            raise_backend_error("local mapping", self.error)
+            if self._thread is None:
+                return
+            if time.monotonic() - t0 > timeout:
+                raise TimeoutError(
+                    f"local mapping did not drain within {timeout} s "
+                    f"({len(self.queue)} keyframes queued)")
+            time.sleep(1e-3)
+        raise_backend_error("local mapping", self.error)
+
+    def join(self, timeout: float = 30.0) -> None:
+        """End the thread without draining it and wait for it."""
+        t = self._thread
+        if t is None:
+            return
+        self._shutdown = True
+        t.join(timeout=timeout)
+        if t.is_alive():
+            raise TimeoutError(f"the local mapping thread did not end "
+                               f"within {timeout} s")
+        self._thread = None
+
+    def shutdown(self, timeout: float = 60.0) -> None:
+        """Drain the queue, then end the thread and join it."""
+        if self._thread is None:
+            return
+        self.drain(timeout)
+        self.join()
 
     # ------------------------------------------------------------- pipeline
 
@@ -667,7 +809,32 @@ class LocalMapping:
                 self.map.add_observation(mp, kf.kf_id, bi)
 
     def local_bundle_adjustment(self, kf: KeyFrame) -> None:
-        """optimizer.cpp:445-774 assembly + device solve."""
+        """optimizer.cpp:445-774: the problem assembled and the result
+        written back under the map lock, the device solve outside it (the
+        tracker runs during the solve)."""
+        with self.map.update_lock:
+            problem = self._assemble_local_ba(kf)
+        if problem is None:
+            return
+        packed, pt_obj = problem
+        (poses, fixd, points, pt_valid, obs_cam, obs_pt, obs_uv, obs_w,
+         obs_valid, kf_index, pt_index, obs_ref, dropped) = packed
+        res = _solve_ba(self.k, packed[:9], iters1=5, iters2=10,
+                        two_phase=True, robust=True)
+        # mbAbortBA semantics (optimizer.cpp:510-511,660-671): a keyframe
+        # that arrived during the solve discards a stale optimum
+        if self.abort_ba:
+            return
+        with self.map.update_lock:
+            if self.abort_ba:
+                return
+            _writeback_ba(self.map, res, kf_index, pt_index, obs_ref, fixd,
+                          pt_obj)
+
+    def _assemble_local_ba(self, kf: KeyFrame):
+        """The local window around `kf` packed for the solve, with the
+        point objects captured for the write-back; None when it overflows
+        the camera cap."""
         rt = self.cfg.runtime
         local = [kf.kf_id] + [k for k in kf.ordered_neighbors
                               if not self.map.keyframes[k].bad]
@@ -707,18 +874,8 @@ class LocalMapping:
         try:
             packed = _assemble_ba(self.map, local, fixed, pids, caps)
         except ValueError:
-            return
-        (poses, fixd, points, pt_valid, obs_cam, obs_pt, obs_uv, obs_w,
-         obs_valid, kf_index, pt_index, obs_ref, dropped) = packed
-        pt_obj = {p: self.map.points[p] for p in pt_index}
-        res = _solve_ba(self.k, packed[:9], iters1=5, iters2=10,
-                        two_phase=True, robust=True)
-        # mbAbortBA semantics (optimizer.cpp:510-511,660-671): a keyframe
-        # that arrived during the solve discards a stale optimum
-        if self.abort_ba:
-            return
-        _writeback_ba(self.map, res, kf_index, pt_index, obs_ref, fixd,
-                      pt_obj)
+            return None
+        return packed, {p: self.map.points[p] for p in packed[10]}
 
     def _redundancy(self, ckf: KeyFrame, *, strict: bool = False):
         """(ratio, n_mp): share of this KF's tracked points observed by

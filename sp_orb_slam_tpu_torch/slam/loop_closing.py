@@ -29,6 +29,12 @@ projection distances, the batched logs and the pose graph: padded rows
 and edges contribute exact zeros, so at most the order of float32 sums
 differs) and keeps the keypoint-slot arrays of the Sim3 search, whose
 indices are its result.
+
+Offline the System spins the loop closer after each frame and the global
+BA runs inline; online `start` runs it on its own thread and each loop's
+global BA on a transient third (`_launch_gba`), both on the starting
+thread's device and CUDA stream.  `warmup` runs the loop path's device
+calls once before the first frame.
 """
 
 from __future__ import annotations
@@ -48,6 +54,9 @@ from sp_orb_slam_tpu_torch.slam.kernels import TrackingKernels, upload
 from sp_orb_slam_tpu_torch.slam.local_mapping import (LocalMapping,
                                                       apply_global_ba_staged,
                                                       assemble_global_ba,
+                                                      current_stream,
+                                                      enter_device,
+                                                      raise_backend_error,
                                                       solve_global_ba)
 from sp_orb_slam_tpu_torch.slam.map import KeyFrame, Map
 
@@ -101,6 +110,9 @@ class LoopClosing:
         self._sim3_gen = torch.Generator().manual_seed(271828)
         self._thread = None
         self._shutdown = False
+        self._busy = False  # a popped keyframe is being processed
+        # what ended the loop or the GBA thread (re-raised by the System)
+        self.error: BaseException | None = None
         # transient GBA thread state (mpThreadGBA / mbRunningGBA /
         # mbStopGBA, loop_closer_vlad.h; kill-running-GBA at
         # loop_closer_vlad.cpp:511-529)
@@ -121,9 +133,11 @@ class LoopClosing:
 
     def spin_once(self) -> None:
         while True:
+            self._busy = True  # before the pop: see drain
             try:
                 kf_id = self.queue.popleft()
             except IndexError:
+                self._busy = False
                 return
             kf = self.map.keyframes.get(kf_id)
             if kf is None or kf.bad or kf.global_desc is None:
@@ -158,31 +172,109 @@ class LoopClosing:
 
     def start(self) -> None:
         """Own-thread drive (LoopClosingVLAD::Run, loop_closer_vlad.cpp:
-        289-325; spawned at system.cpp:100-106)."""
+        289-325; spawned at system.cpp:100-106) on the caller's device and
+        stream."""
         if self._thread is not None:
             return
         self._shutdown = False
-        self._thread = threading.Thread(target=self.run, name="loop_closing",
-                                        daemon=True)
+        self._thread = threading.Thread(
+            target=self.run, args=(current_stream(self.device),),
+            name="loop_closing", daemon=True)
         self._thread.start()
 
-    def run(self) -> None:
-        while not self._shutdown:
-            self.spin_once()
-            time.sleep(1e-3)
+    def run(self, stream=None) -> None:
+        """An exception ends the thread and is kept in `error`."""
+        try:
+            enter_device(self.device, stream)
+            while not self._shutdown:
+                self.spin_once()
+                time.sleep(1e-3)
+        except Exception as e:  # re-raised by the System
+            self.error = e
+        finally:
+            self._busy = False
 
-    def shutdown(self) -> None:
-        # let a running GBA finish and commit (a clean shutdown wants the
-        # correction in the exported trajectory), then stop the loop thread
-        t = self._gba_thread
-        if t is not None and t.is_alive():
-            t.join(timeout=60.0)
-        self._gba_thread = None
-        if self._thread is None:
-            return
-        self._shutdown = True
-        self._thread.join(timeout=30.0)
-        self._thread = None
+    def drain(self, timeout: float = 60.0) -> None:
+        """Block until the queue is empty, no keyframe is in process and no
+        global BA runs; raise when `timeout` seconds pass first or when a
+        thread of the loop closer died.  Nothing to wait for without a
+        thread."""
+        t0 = time.monotonic()
+        while self.queue or self._busy or self.gba_running:
+            raise_backend_error("loop closing", self.error)
+            if self._thread is None:
+                return
+            if time.monotonic() - t0 > timeout:
+                raise TimeoutError(
+                    f"loop closing did not drain within {timeout} s "
+                    f"({len(self.queue)} keyframes queued, global BA "
+                    f"running: {self.gba_running})")
+            time.sleep(1e-3)
+        raise_backend_error("loop closing", self.error)
+
+    def shutdown(self, timeout: float = 60.0) -> None:
+        """End the loop thread and join it, then let a running GBA finish
+        and commit (a clean shutdown wants the correction in the exported
+        trajectory) and join it; raise when either outlives `timeout`."""
+        t = self._thread
+        if t is not None:
+            self._shutdown = True
+            t.join(timeout=timeout)
+            if t.is_alive():
+                raise TimeoutError(f"the loop closing thread did not end "
+                                   f"within {timeout} s")
+            self._thread = None
+        g = self._gba_thread
+        if g is not None:
+            g.join(timeout=timeout)
+            if g.is_alive():
+                raise TimeoutError(f"the global BA thread did not end "
+                                   f"within {timeout} s")
+            self._gba_thread = None
+
+    def warmup(self) -> None:
+        """Run the loop path's device calls once on dummy inputs at their
+        production shapes on the system's device (JAX
+        LoopClosing.warmup): one brute-force match, one pairwise distance,
+        one Sim3 RANSAC, one OptimizeSim3, one Sim3 projection search and
+        one pose-graph solve, so library loads and first-use allocations
+        leave the first loop attempt.  The RANSAC draws are zeros: the
+        sample stream stays the real attempts'."""
+        dev = self.device
+        N = self.cfg.runtime.max_keypoints
+        K_intr = self.k.K_intr
+        z = lambda *shape: torch.zeros(shape, device=dev)
+        desc = z(N, 256)
+        v = torch.zeros(N, dtype=torch.bool, device=dev)
+        v[:32] = True
+        matching.search_by_brute_force(desc, v, desc, v).cpu()
+        matching.pairwise_dist(z(256, 256), desc).cpu()
+        res = s3.sim3_ransac(z(N, 3), z(N, 3), z(N, 2), z(N, 2), v, K_intr,
+                             torch.zeros((RANSAC_ITERS, 3), dtype=torch.long))
+        res.ok.cpu()
+        out = s3.optimize_sim3(
+            torch.eye(3, device=dev), z(3), torch.ones((), device=dev),
+            z(32, 3), z(32, 3), z(32, 2), z(32, 2),
+            torch.ones(32, 2, device=dev), torch.ones(32, 2, device=dev),
+            v[:32], K_intr)
+        out[4].cpu()
+        cam = self.cfg.camera
+        bounds = torch.tensor([0.0, cam.width - 1.0, 0.0, cam.height - 1.0],
+                              device=dev)
+        uv = z(N, 2)
+        eye = torch.eye(3, device=dev)
+        m1, _ = matching.search_by_sim3(
+            z(N, 3), v, desc, z(N), torch.ones(N, device=dev), uv, desc, v,
+            z(N, 3), v, desc, z(N), torch.ones(N, device=dev), uv, desc, v,
+            eye, z(3), eye, z(3), K_intr, bounds, radius=7.5)
+        m1.cpu()
+        fixed = torch.ones(8, dtype=torch.bool, device=dev)
+        fixed[0] = False
+        idx = torch.zeros(8, dtype=torch.long, device=dev)
+        out = s3.optimize_pose_graph(
+            z(8, 7), fixed, idx, idx, z(8, 7),
+            torch.zeros(8, dtype=torch.bool, device=dev), iters=20)
+        s3.sim3_exp(out)[2].cpu()
 
     # ---------------------------------------------------------------- detect
 
@@ -510,8 +602,7 @@ class LoopClosing:
         # surgery under the map-update lock (:543-639), release the mapper,
         # then run global BA (:681-690)
         self._stop_gba()
-        self.mapper.request_stop()
-        self.mapper.wait_until_stopped()
+        self.mapper.stop()
         try:
             with self.map.update_lock:
                 self._correct_loop_locked(kf, matched_kf_id, Scw, hit)
@@ -521,54 +612,68 @@ class LoopClosing:
 
     # ------------------------------------------------------- transient GBA
 
-    def _stop_gba(self) -> None:
+    def _stop_gba(self, timeout: float = 60.0) -> None:
         """Kill a running GBA (mbStopGBA + join; loop_closer_vlad.cpp:
         520-529).  The device solve itself is not interruptible, but its
         result is discarded at the commit check."""
         t = self._gba_thread
         if t is not None and t.is_alive():
             self._gba_stop = True
-            t.join()
+            t.join(timeout=timeout)
+            if t.is_alive():
+                raise TimeoutError(f"the global BA thread did not end "
+                                   f"within {timeout} s")
         self._gba_thread = None
         self._gba_stop = False
 
     def _launch_gba(self, loop_kf_id: int) -> None:
-        """Spawn RunGlobalBundleAdjustment (loop_closer_vlad.cpp:687) when
-        the loop closer runs on its own thread; the offline deterministic
-        drive runs the same staged code path inline."""
+        """Spawn RunGlobalBundleAdjustment (loop_closer_vlad.cpp:687) on
+        its own thread, on this thread's device and stream, when the loop
+        closer runs on its own thread; the offline deterministic drive runs
+        the same staged code path inline."""
         self.gba_running = True
         self._gba_stop = False
         if self._thread is not None:
             self._gba_thread = threading.Thread(
-                target=self._run_gba, args=(loop_kf_id,), name="global_ba",
-                daemon=True)
+                target=self._gba_main,
+                args=(loop_kf_id, current_stream(self.device)),
+                name="global_ba", daemon=True)
             self._gba_thread.start()
         else:
+            try:
+                self._run_gba(loop_kf_id)
+            finally:
+                self.gba_running = False
+
+    def _gba_main(self, loop_kf_id: int, stream) -> None:
+        """The GBA thread: an exception ends it and is kept in `error`
+        (before `gba_running` falls, so `drain` cannot miss it)."""
+        try:
+            enter_device(self.device, stream)
             self._run_gba(loop_kf_id)
+        except Exception as e:  # re-raised by the System
+            self.error = e
+        finally:
+            self.gba_running = False
 
     def _run_gba(self, loop_kf_id: int) -> None:
         """RunGlobalBundleAdjustment (loop_closer_vlad.cpp:753-849):
         snapshot under the lock, solve outside it, then stop the mapper and
         commit with spanning-tree propagation to keyframes and points
         created during the solve."""
+        with self.map.update_lock:
+            problem = assemble_global_ba(self.map)
+        res = solve_global_ba(problem, self.k, iters=10)
+        if self._gba_stop:
+            return
+        self.mapper.stop()
         try:
             with self.map.update_lock:
-                problem = assemble_global_ba(self.map)
-            res = solve_global_ba(problem, self.k, iters=10)
-            if self._gba_stop:
-                return
-            self.mapper.request_stop()
-            self.mapper.wait_until_stopped()
-            try:
-                with self.map.update_lock:
-                    if self._gba_stop:
-                        return
-                    apply_global_ba_staged(self.map, problem, res,
-                                           loop_kf_id)
-            finally:
-                self.mapper.release()
+                if self._gba_stop:
+                    return
+                apply_global_ba_staged(self.map, problem, res, loop_kf_id)
         finally:
-            self.gba_running = False
+            self.mapper.release()
 
     def _correct_loop_locked(self, kf: KeyFrame, matched_kf_id: int, Scw,
                              hit) -> None:

@@ -5,10 +5,10 @@ type/keyframe.{h,cpp}, type/map.{h,cpp}) with arrays instead of pointer
 graphs: map points live in contiguous numpy pools (positions, descriptors,
 normals) so per-frame device uploads are cheap slices, while the structural
 graph (observations, covisibility, spanning tree) stays in plain dicts.
-One map-wide re-entrant lock (`Map.update_lock`, mMutexMapUpdate) is held
-by loop detection and correction; the port runs the reference's
-deterministic offline mode (spinOnce after each frame,
-system.cpp:176-178), where nothing else contends for it.
+One map-wide re-entrant lock (`Map.update_lock`, mMutexMapUpdate)
+serializes tracking's drives, the mapper's map-mutating stages and loop
+detection and correction; in the online mode they run on their own
+threads and contend for it.
 
 The port keeps its own copy of the JAX package's slam/map.py; the device
 descriptor banks are torch tensors on the system's device.  Keyframes

@@ -2,20 +2,25 @@
 
 The port of the JAX package's slam/system.py (include/orb_slam/system.h,
 src/system.cpp, src/system_helper.cpp): builds the map, tracking and local
-mapping on one device, drives frames through them in the reference's
-deterministic offline mode (mapping spins synchronously after each frame,
-system.cpp:176-178) and exports TUM / KITTI / EuRoC trajectories by
-re-chaining relative poses through (possibly culled) reference keyframes
-(system_helper.cpp:89-318).  Map save/load (slam/serialize.py),
-localization mode and loop closing (slam/loop_closing.py, with NetVLAD
-place recognition computed on the device at keyframe promotion) are here;
-N systems can share one TrackingKernels (slam/fleet.py).  The online
-threads wait for their slice.
+mapping on one device, drives frames through them and exports TUM / KITTI
+/ EuRoC trajectories by re-chaining relative poses through (possibly
+culled) reference keyframes (system_helper.cpp:89-318).  Two drive modes,
+as the reference's: the deterministic offline mode spins mapping (and
+loop closing) synchronously after each frame (system.cpp:176-178); the
+online mode (`cfg.online`) runs them on their own threads beside tracking
+(system.cpp:92-115), started by the first frame and joined by `shutdown`.
+`warmup` runs every device stage once before the first frame.  Map
+save/load (slam/serialize.py), localization mode and loop closing
+(slam/loop_closing.py, with NetVLAD place recognition computed on the
+device at keyframe promotion) are here; N systems can share one
+TrackingKernels (slam/fleet.py).
 """
 
 from __future__ import annotations
 
 import os
+import time
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -25,7 +30,8 @@ from sp_orb_slam_tpu_torch.config import Config
 from sp_orb_slam_tpu_torch.io.dataset import RawFrame, make_dataset
 from sp_orb_slam_tpu_torch.slam.frame import FrameData, frame_from_features
 from sp_orb_slam_tpu_torch.slam.kernels import TrackingKernels
-from sp_orb_slam_tpu_torch.slam.local_mapping import LocalMapping
+from sp_orb_slam_tpu_torch.slam.local_mapping import (LocalMapping,
+                                                      raise_backend_error)
 from sp_orb_slam_tpu_torch.slam.map import Map
 from sp_orb_slam_tpu_torch.slam.tracking import Tracking
 from sp_orb_slam_tpu_torch.utils.timing import Timer
@@ -74,15 +80,20 @@ def rechain_trajectory(world, rel_poses, refs, times):
 def build_preprocess(cfg: Config, device: torch.device):
     """Rectification on the device when the stream is distorted (the
     reference pre-rectifies with initUndistortRectifyMap + remap,
-    data_loader.cc:470-489,517-527).  None for undistorted streams."""
+    data_loader.cc:470-489,517-527): a EuRoC stream is remapped from the
+    raw cam0 calibration (EurocDataset.RAW_K) to the configured camera.
+    None for undistorted streams."""
     from sp_orb_slam_tpu_torch.geometry import camera as cam_ops
+    from sp_orb_slam_tpu_torch.io.dataset import EurocDataset
 
     cam = cfg.camera
     dist = np.array([cam.k1, cam.k2, cam.p1, cam.p2, cam.k3], np.float32)
     if not np.any(dist):
         return None
     K = torch.tensor([cam.fx, cam.fy, cam.cx, cam.cy], device=device)
-    grid = cam_ops.rectify_map(K, K, torch.from_numpy(dist).to(device),
+    K_raw = (torch.from_numpy(EurocDataset.RAW_K).to(device)
+             if cfg.dataset.startswith("euroc") else K)
+    grid = cam_ops.rectify_map(K, K_raw, torch.from_numpy(dist).to(device),
                                cam.height, cam.width)
     return lambda img: cam_ops.bilinear_remap(img, grid)
 
@@ -101,9 +112,6 @@ class System:
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device available; pass device='cpu' "
                                "to run the system on the CPU")
-        if cfg.online:
-            raise NotImplementedError("online (threaded mapping) is not "
-                                      "ported")
         self.cfg = cfg
         self.device = dev
         self.map = Map(device=dev)
@@ -139,6 +147,28 @@ class System:
             self._extract = make_extractor(cfg, params, device=dev)
             self._preprocess = build_preprocess(cfg, dev)
         self.timer = Timer()
+
+    def warmup(self) -> None:
+        """Run every device stage this system can reach once before the
+        first frame (TrackingKernels.warmup, LoopClosing.warmup, the
+        place-recognition hook and the extractor at B=1), so kernel builds,
+        library loads and first-use allocations leave the first frames."""
+        self.kernels.warmup(pool_capacity=self.map.pool.capacity)
+        if self.looper is not None:
+            self.looper.warmup()
+        K = self.cfg.runtime.max_keypoints
+        if self.map.global_desc_fn is not None:
+            valid = np.zeros(K, bool)
+            valid[:32] = True
+            self.map.global_desc_fn(SimpleNamespace(
+                global_desc=None, valid=valid,
+                desc_dev=torch.zeros((K, 256), device=self.device)))
+        if self._extract is not None:
+            H, W = self.cfg.camera.height, self.cfg.camera.width
+            img = torch.zeros((H, W), device=self.device)
+            if self._preprocess is not None:
+                img = self._preprocess(img)
+            self.kernels.fetch_features_host(self._extract(img[None]))
 
     def _make_global_desc_fn(self):
         """NetVLAD place recognition on the system's device
@@ -202,6 +232,8 @@ class System:
         return f
 
     def process(self, raw: RawFrame) -> None:
+        if self.cfg.online:
+            self.start_threads()
         with self.timer.span("tracking/frame"):
             if raw.injected is not None:
                 frame = self._frame_from_injected(raw)
@@ -212,6 +244,8 @@ class System:
     def process_frame(self, frame: FrameData,
                       raw: Optional[RawFrame] = None) -> None:
         """Track one frame whose features are already extracted."""
+        if self.cfg.online:
+            self.start_threads()
         with self.timer.span("tracking/total"):
             self.tracker.track_frame(frame)
         self._post_track(frame, raw)
@@ -219,7 +253,8 @@ class System:
     def _post_track(self, frame: FrameData,
                     raw: Optional[RawFrame] = None) -> None:
         """Everything after tracking: the next frame's extraction prefetch,
-        reset handling, the offline mapping spin, frame counting."""
+        reset handling, the offline mapping and loop spins, frame
+        counting."""
         # enqueue the NEXT frame's extraction before this frame's mapping
         # spin so the card runs it while the host is busy (extraction is a
         # pure function of the image: the result is the same either way)
@@ -231,11 +266,12 @@ class System:
         if self.tracker.request_reset:
             self.reset()
             return
-        with self.timer.span("mapping"):
-            self.mapper.spin_once()
-        if self.looper is not None:
-            with self.timer.span("loop"):
-                self.looper.spin_once()
+        if not self.cfg.online:
+            with self.timer.span("mapping"):
+                self.mapper.spin_once()
+            if self.looper is not None:
+                with self.timer.span("loop"):
+                    self.looper.spin_once()
         self.frame_id += 1
 
     # ------------------------------------------------------- mode toggles
@@ -258,10 +294,9 @@ class System:
 
     def _apply_pending_toggles(self) -> None:
         if self._local_on:
-            # stop the mapper so the map is frozen, then inform the tracker
-            # (system.cpp:204-215)
-            self.mapper.request_stop()
-            self.mapper.wait_until_stopped()
+            # stop the mapper (and wait for its thread to park, online) so
+            # the map is frozen, then inform the tracker (system.cpp:204-215)
+            self.mapper.stop()
             self.tracker.only_tracking = True
             self._local_on = False
         if self._local_off:
@@ -295,51 +330,120 @@ class System:
             return None
         return lf.Tcw
 
+    # ------------------------------------------------------------ threads
+
+    def start_threads(self) -> None:
+        """Online mode: mapping (and loop closing) run on their own threads
+        on this thread's device and stream (system.cpp:92-115); tracking
+        stays on the caller's thread.  Re-raises what ended a backend
+        thread."""
+        self.raise_backend_error()
+        self.mapper.start()
+        if self.looper is not None:
+            self.looper.start()
+
+    def raise_backend_error(self) -> None:
+        """Re-raise the exception that ended a backend thread, if any."""
+        raise_backend_error("local mapping", self.mapper.error)
+        if self.looper is not None:
+            raise_backend_error("loop closing", self.looper.error)
+
+    def shutdown(self, timeout: float = 120.0) -> None:
+        """Drain the pipeline and join the backend threads
+        (System::Shutdown, system_helper.cpp:59-87); raise when `timeout`
+        seconds pass with work still queued or when a backend thread
+        failed.  The mapper is drained again after each loop-closer drain:
+        a loop correction or GBA commit stops it for a while."""
+        deadline = time.monotonic() + timeout
+        left = lambda: max(deadline - time.monotonic(), 0.0)
+        try:
+            while True:
+                self.mapper.drain(left())
+                if self.looper is None:
+                    break
+                self.looper.drain(left())
+                if not self.mapper.queue or self.mapper.stop_requested:
+                    break
+        finally:  # joined even when the drain failed
+            self._stop_threads(max(left(), 30.0))
+        self.raise_backend_error()
+
+    def _stop_threads(self, timeout: float = 60.0) -> None:
+        """End and join the backend threads without draining them."""
+        if self.looper is not None:
+            self.looper.shutdown(timeout)
+        self.mapper.join(timeout)
+
     def spin(self, dataset=None, max_frames: Optional[int] = None) -> None:
-        """Run every frame of `dataset` (default: `make_dataset(cfg)`)."""
+        """Run every frame of `dataset` (default: `make_dataset(cfg)`); in
+        the online mode drain and join the backend threads at the end
+        (they are joined, undrained, when a frame raises)."""
         if dataset is None:
             dataset = make_dataset(self.cfg)
-        it = iter(dataset)
-        raw = next(it, None)
-        i = 0
-        while raw is not None:
-            if max_frames is not None and i >= max_frames:
-                break
-            # one-frame lookahead feeds the extraction prefetch
-            nxt = next(it, None)
-            if max_frames is not None and i + 1 >= max_frames:
-                nxt = None
-            self._next_raw = nxt
-            self._apply_pending_toggles()
-            self.process(raw)
-            raw = nxt
-            i += 1
-        self._next_raw = None
-        self._prefetched = None
+        done = False
+        try:
+            it = iter(dataset)
+            raw = next(it, None)
+            i = 0
+            while raw is not None:
+                if max_frames is not None and i >= max_frames:
+                    break
+                # one-frame lookahead feeds the extraction prefetch
+                nxt = next(it, None)
+                if max_frames is not None and i + 1 >= max_frames:
+                    nxt = None
+                self._next_raw = nxt
+                self._apply_pending_toggles()
+                self.process(raw)
+                raw = nxt
+                i += 1
+            done = True
+        finally:
+            self._next_raw = None
+            self._prefetched = None
+            if self.cfg.online:
+                if done:
+                    self.shutdown()
+                else:
+                    self._stop_threads()
 
     def reset(self) -> None:
         """System::resetSystem (system_helper.cpp:12-52): a fresh map and
-        tracker; the trajectory records survive."""
+        tracker; the trajectory records survive.  Online, the loop thread
+        is joined and the mapper stopped before the map is cleared, and
+        both run again after."""
+        online = self.mapper._thread is not None
         if self.looper is not None:
             # LoopClosing::RequestReset: drop queued KFs, the
             # place-recognition database, the consistency state and any
-            # in-flight GBA before its result could land on the cleared map
+            # in-flight GBA before its result could land on the cleared
+            # map.  The GBA first: its commit runs its own stop/release
+            # cycle on the mapper
             self.looper._stop_gba()
+            if online:  # its current keyframe must not outlive the map
+                self.looper.shutdown()
             self.looper.queue.clear()
             self.looper.db.clear()
             self.looper.consistent_groups.clear()
             self.looper.last_loop_kf = -10 ** 9
-        self.map.clear()
-        self.mapper.queue.clear()
-        self.mapper.recent_pids.clear()
-        tr = self.tracker
-        self.tracker = Tracking(self.cfg, self.map, self.kernels, self.mapper)
-        self.tracker.only_tracking = tr.only_tracking
-        self.tracker.fleet_bank_mode = tr.fleet_bank_mode
-        self.tracker.rel_poses = tr.rel_poses
-        self.tracker.refs = tr.refs
-        self.tracker.times = tr.times
-        self.tracker.lost_flags = tr.lost_flags
+        if online:  # freeze the mapping thread before clearing under it
+            self.mapper.stop()
+        with self.map.update_lock:
+            self.map.clear()
+            self.mapper.queue.clear()
+            self.mapper.recent_pids.clear()
+            tr = self.tracker
+            self.tracker = Tracking(self.cfg, self.map, self.kernels,
+                                    self.mapper)
+            self.tracker.only_tracking = tr.only_tracking
+            self.tracker.fleet_bank_mode = tr.fleet_bank_mode
+            self.tracker.rel_poses = tr.rel_poses
+            self.tracker.refs = tr.refs
+            self.tracker.times = tr.times
+            self.tracker.lost_flags = tr.lost_flags
+        if online:
+            self.mapper.release()
+            self.start_threads()
 
     # ------------------------------------------------------- map persistence
 
@@ -348,7 +452,8 @@ class System:
         localize-many serving pattern."""
         from sp_orb_slam_tpu_torch.slam.serialize import save_map
 
-        save_map(self.map, path)
+        with self.map.update_lock:
+            save_map(self.map, path)
 
     def load_map(self, path: str) -> None:
         """Replace the current map with a saved one and arm the tracker for
@@ -359,6 +464,14 @@ class System:
         from sp_orb_slam_tpu_torch.slam.serialize import load_map
         from sp_orb_slam_tpu_torch.slam.tracking import LOST
 
+        # online: the old threads end (the mapper parked first, so nothing
+        # writes the old map) and new ones start on the loaded map
+        was_online = self.mapper._thread is not None
+        if was_online:
+            self.mapper.stop()
+            if self.looper is not None:
+                self.looper._stop_gba()
+            self._stop_threads()
         hook = self.map.global_desc_fn
         self.map = load_map(path, mp_capacity=self.map.pool.capacity,
                             device=self.device)
@@ -381,6 +494,8 @@ class System:
         if live:
             self.tracker.state = LOST
             self.tracker.ref_kf = max(live)
+        if was_online:
+            self.start_threads()
 
     # ------------------------------------------------------------ trajectory
 

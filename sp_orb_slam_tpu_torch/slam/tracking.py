@@ -14,11 +14,13 @@ tracker.cpp:986-1138) — here it is a working multi-start reference-KF
 match — and a LOST state with <= 5 KFs triggers a system reset
 (tracker.cpp:329-335).
 
-The port of the JAX package's slam/tracking.py, offline: the single-stream
+The port of the JAX package's slam/tracking.py: the single-stream
 drive (`track_frame`), the fleet's phased drive (`coarse_phase1/2`, the
 `prepare_*` preps in bank mode, `fine_begin_fleet` / `fine_step_fleet`,
 `track_frame_fine`; slam/fleet.py) and localization mode (`only_tracking`,
-`vo_mode`).  The heat coarse tracker waits for its variant.  The two-view
+`vo_mode`); each drive holds the map lock as the JAX package's does, so
+the online mode's mapping and loop threads interleave only between them.
+The heat coarse tracker waits for its variant.  The two-view
 init's RANSAC draws come from a torch.Generator seeded 31415926
 (initializer.cpp:77), one draw per attempt (`_init_draws`).
 
@@ -111,9 +113,12 @@ class Tracking:
     # ------------------------------------------------------------------ API
 
     def track_frame(self, frame: FrameData) -> None:
-        if self._begin_frame(frame):
-            self._track(frame)
-            self._record_trajectory(frame)
+        # whole-frame map-update critical section (tracker.cpp:189): in the
+        # online mode it serializes against the mapping and loop threads
+        with self.map.update_lock:
+            if self._begin_frame(frame):
+                self._track(frame)
+                self._record_trajectory(frame)
 
     def _begin_frame(self, frame: FrameData) -> bool:
         """The head of every drive: True when the frame goes on to the
@@ -132,17 +137,20 @@ class Tracking:
 
     # The fleet's phased drive (slam/fleet.py): coarse for every stream,
     # then ONE batched fine-stage call, then per-stream fine consumption.
+    # Each phase takes the map lock on its own, so an online stream's
+    # mapper can run between the phases (as between whole frames).
 
     def track_frame_fine(self, frame: FrameData) -> None:
         """Fleet phase 3: the fine stage (consuming any staged batched
         result) + the state / motion-model / keyframe tail + trajectory
         bookkeeping."""
-        if self._phase is None:
-            return
-        ok, was_lost = self._phase
-        self._phase = None
-        self._track_fine(frame, ok, was_lost)
-        self._record_trajectory(frame)
+        with self.map.update_lock:
+            if self._phase is None:
+                return
+            ok, was_lost = self._phase
+            self._phase = None
+            self._track_fine(frame, ok, was_lost)
+            self._record_trajectory(frame)
 
     def coarse_phase1(self, frame: FrameData):
         """Fleet phase 1 with a batchable motion fallback: the coarse
@@ -150,6 +158,10 @@ class Tracking:
         the motion model has something to track from, the motion stage's
         arguments are RETURNED for the fleet to run as one batched call
         across every such stream (coarse_phase2 consumes)."""
+        with self.map.update_lock:
+            return self._coarse_phase1(frame)
+
+    def _coarse_phase1(self, frame: FrameData):
         if not self._begin_frame(frame):
             return None
         # R1: scrub replaced points as the single-stream paths do
@@ -182,13 +194,14 @@ class Tracking:
         """Consume the batched motion-fallback result staged by
         coarse_phase1 and finish the coarse cascade (reference-KF fallback
         on failure, as _track_coarse)."""
-        was_lost, pids = self._coarse_ctx
-        self._coarse_ctx = None
-        ok = self._consume_motion(frame, pids, out)
-        if not ok:
-            ok = self._track_reference_kf(frame)
-        frame.ref_kf = self.ref_kf
-        self._phase = (ok, was_lost)
+        with self.map.update_lock:
+            was_lost, pids = self._coarse_ctx
+            self._coarse_ctx = None
+            ok = self._consume_motion(frame, pids, out)
+            if not ok:
+                ok = self._track_reference_kf(frame)
+            frame.ref_kf = self.ref_kf
+            self._phase = (ok, was_lost)
 
     # --------------------------------------------------------- initialization
 
@@ -1158,19 +1171,21 @@ class Tracking:
         first retry request (for the fleet to batch across streams) or None
         when no retry is needed.  The machine's final best result is
         re-staged so track_frame_fine consumes it without re-running."""
-        if self._phase is None or not self._phase[0]:
-            return None  # init frame or coarse failed: no fine stage
-        staged = self.staged_local
-        if staged is None or staged[0] is not frame:
-            return None  # the prepass missed this stream: per-stream path
-        self._fine_st = self._fine_begin(frame, staged[1], staged[2])
-        return self._finish_or_request(frame)
+        with self.map.update_lock:
+            if self._phase is None or not self._phase[0]:
+                return None  # init frame or coarse failed: no fine stage
+            staged = self.staged_local
+            if staged is None or staged[0] is not frame:
+                return None  # the prepass missed this stream
+            self._fine_st = self._fine_begin(frame, staged[1], staged[2])
+            return self._finish_or_request(frame)
 
     def fine_step_fleet(self, frame: FrameData, out: dict):
         """Feed one batched retry result back; returns the next request or
         None when the machine finished (result re-staged)."""
-        self._fine_step(self._fine_st, out)
-        return self._finish_or_request(frame)
+        with self.map.update_lock:
+            self._fine_step(self._fine_st, out)
+            return self._finish_or_request(frame)
 
     def _finish_or_request(self, frame: FrameData):
         st = self._fine_st

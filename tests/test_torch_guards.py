@@ -24,6 +24,8 @@ import sys
 import sp_orb_slam_tpu_torch
 import sp_orb_slam_tpu_torch.config, sp_orb_slam_tpu_torch.extractor
 import sp_orb_slam_tpu_torch.io.dataset, sp_orb_slam_tpu_torch.io.render
+import sp_orb_slam_tpu_torch.io.native_loader
+sp_orb_slam_tpu_torch.io.native_loader.available()
 import sp_orb_slam_tpu_torch.models.superpoint
 import sp_orb_slam_tpu_torch.models.weights
 import sp_orb_slam_tpu_torch.ops._build, sp_orb_slam_tpu_torch.ops.covariance
@@ -67,7 +69,8 @@ def test_port_imports_no_jax():
     assert out[0] == "[]", out[0]
     for mod in ("extractor", "slam.system", "run_vo", "ops.cuda_desc",
                 "ops.cuda_pair1", "slam.serialize", "slam.fleet",
-                "optim.sim3", "models.netvlad", "slam.loop_closing"):
+                "optim.sim3", "models.netvlad", "slam.loop_closing",
+                "io.dataset", "io.native_loader"):
         assert f"sp_orb_slam_tpu_torch.{mod}" in out[1], mod
 
 
@@ -164,14 +167,77 @@ def test_loop_modules_run_on_the_given_device():
     assert isinstance(gd, np.ndarray) and gd.shape == (4096,)
 
 
-def test_online_mode_still_raises():
-    import dataclasses
+def test_launch_counts_are_exact_across_threads(monkeypatch):
+    """`launch` counts under its lock: threads launching at once (the
+    online mode's tracking, mapping and loop closing) lose no count, here
+    with more threads than cores and the interpreter switching threads
+    every microsecond.  The entry point, device and stream are stubs, so
+    this runs without a card."""
+    import contextlib
+    import threading
+    import types
 
-    from sp_orb_slam_tpu_torch.slam.system import System
+    monkeypatch.setattr(_build, "function", lambda *a: lambda *args: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setitem(_build.LAUNCHES, "noop", 0)
+    n, n_threads = 4000, (os.cpu_count() or 1) + 2
+    start = threading.Barrier(n_threads)
 
-    with pytest.raises(NotImplementedError, match="online"):
-        System(dataclasses.replace(_loop_config(), online=True),
-               device="cpu")
+    def launches():
+        start.wait()
+        for _ in range(n):
+            _build.launch("noop", "noop_launch", (), device="stub")
+
+    threads = [threading.Thread(target=launches) for _ in range(n_threads)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert _build.LAUNCHES["noop"] == n_threads * n
+
+
+def test_full_f32_blocks_are_counted_across_threads():
+    """TF32 stays off while any thread is inside a full_f32 block: a block
+    that ends on one thread does not turn it back on under another's, and
+    the switches come back as they were once the last block ends."""
+    import threading
+
+    from sp_orb_slam_tpu_torch.utils.precision import full_f32
+
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    inside, leave = threading.Event(), threading.Event()
+
+    def other():
+        with full_f32():
+            inside.set()
+            leave.wait(timeout=60)
+
+    t = threading.Thread(target=other)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        with full_f32():
+            t.start()
+            assert inside.wait(timeout=60)
+        # this thread's block ended inside the other's
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+        leave.set()
+        t.join(timeout=60)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        leave.set()
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = before
 
 
 def test_run_vo_writes_inside_the_repository_by_default():
