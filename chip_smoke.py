@@ -41,7 +41,9 @@ only, for the named kernels or all seven, printing the kernel rows and no
    "auto") and again through pair1t (conv_packing="pair1t"); the same in
    float32 with the kernels and with the plain versions, which must agree;
    then the float32 extractor with desc_method "pallas_sparse" and
-   "pallas" against "gather";
+   "pallas" against "gather", and with cov_method "dense" (the same
+   responses, median relative cov2 difference < 0.1, cov2 >= 1) and
+   "none" (unit covariance, zero response) beside the cov kernel's;
 4. step time: the extract + init-match step of bench.py (B=32, bfloat16,
    through pair1) as frames/s over the wall time of 50 steps;
 5. profile: the same step under torch.profiler, with the device's idle
@@ -85,16 +87,31 @@ only, for the named kernels or all seven, printing the kernel rows and no
    counted from zero after warmup, no `TrackingKernels` stage called that
    warmup did not call (`spy_stages`), and a global BA committed from its
    own thread (where no loop closed, a forced leg runs it over the
-   online map, the caller taking the map lock while it solves).
+   online map, the caller taking the map lock while it solves);
+10. the variants off the defaults: phase 6's System with the heat coarse
+   tracker and the epipolar-walk triangulation (coarse_method="heat",
+   matching_method=2) over the first 120 of phase 6's frames: gates 0
+   LOST and ATE < 0.2, nms / cov / desc_sparse once a frame and match at
+   least once, the heat stage called and no dust stage (`spy_stages`),
+   method-2 triangulation rows dispatched and map points committed from
+   them; ms per frame, `System.process` and the spans beside phase 6's
+   over the same frames;
+10b. the fleet under the heat tracker: `StreamFleet(cfg, 2, params,
+   device="cuda")` in bfloat16 (pair1), warmed up, over 30 ticks of phase
+   7's rooms 4 and 5: gates 0 LOST per stream, the heat stage on every
+   stream and no dust stage, pair1 / nms / cov / desc_sparse once a tick;
+   ms per tick.
 
 Every path is driven with the launch counters zeroed just before it and
 read just after (phase 9: after its warmup), and fails if a kernel of that
 path never launched.  The
 rendered frames of phases 6 and 7 are made before phase 2, in one process
 per CPU core.
-Prints a `kernels` JSON line, the card's name and power limit, and as the
-last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
-result, without a card or without the repository around it.
+Prints a `kernels` JSON line (each kernel's launches on its path and, as
+`launches_heat`, in phase 10, pair1's in phase 10b), the card's name and
+power limit, and as the last line {"ok": true, "device": {...}}.  Exits
+non-zero, printing no result, without a card or without the repository
+around it.
 """
 
 from __future__ import annotations
@@ -1105,7 +1122,56 @@ def main_path(state, dev):
             f"desc max_abs_err {err:.3e}")
         if not same or err > 1e-5:
             raise AssertionError(f"desc_method={method} disagrees with gather")
+    cov_routes(state, dev, images, f_k)
     return launches, pair1t_route, routes["pallas"]
+
+
+def cov_routes(state, dev, images, f_k):
+    """The float32 extractor's plain covariance routes beside the cov
+    kernel's features `f_k` of the same frames: cov_method="dense" (the
+    JAX package's dense-ownership fill; tests/test_extractor.py:245-277's
+    gates: the same responses, median relative cov2 difference < 0.1,
+    cov2 >= 1) and "none" (unit covariance, zero response); neither
+    launches the cov kernel."""
+    import torch
+
+    from sp_orb_slam_tpu_torch.config import Config
+    from sp_orb_slam_tpu_torch.extractor import make_extractor
+
+    cfg = Config()
+    valid = f_k.valid
+    for method in ("dense", "none"):
+        run_m = make_extractor(dataclasses.replace(
+            cfg, extractor=dataclasses.replace(cfg.extractor,
+                                               cov_method=method)),
+            state, device=dev)
+        zero_launches()
+        f_m = run_m(images)
+        torch.cuda.synchronize()
+        launches = read_launches(f"frontend cov_method={method}",
+                                 ("nms", "desc_sparse"))
+        same = torch.equal(f_m.uv, f_k.uv) and torch.equal(f_m.count,
+                                                           f_k.count)
+        if method == "dense":
+            resp_err = float((f_m.response - f_k.response).abs().max())
+            rel = ((f_m.cov2 - f_k.cov2).abs() / f_k.cov2)[valid]
+            med = float(rel.median())
+            ok = (same and resp_err <= 1e-6 and med < 0.1
+                  and bool((f_m.cov2 >= 1.0).all()))
+            log(f"cov_method=dense vs cuda: uv/count identical {same}, "
+                f"response max_abs_err {resp_err:.3e}, cov2 median relative "
+                f"difference {med:.4f} (max {float(rel.max()):.4f}), cov2 "
+                f"min {float(f_m.cov2.min()):.4f}, cov launches "
+                f"{launches['cov']}")
+        else:
+            ok = (same and bool((f_m.cov2 == 1.0).all())
+                  and bool((f_m.cov2_inv == 1.0).all())
+                  and bool((f_m.response == 0.0).all()))
+            log(f"cov_method=none: uv/count identical {same}, unit cov2 and "
+                f"cov2_inv, zero response {ok}, cov launches "
+                f"{launches['cov']}")
+        if not ok or launches["cov"] != 0:
+            raise AssertionError(f"cov_method={method}: gates failed")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1278,6 +1344,21 @@ def keep_samples(timer):
     return spans
 
 
+def time_process(sys_):
+    """Wrap `sys_.process` to append each frame's wall ms to the returned
+    list."""
+    process = sys_.process
+    per_frame = []
+
+    def timed_process(raw):
+        t0 = time.perf_counter()
+        process(raw)
+        per_frame.append((time.perf_counter() - t0) * 1e3)
+
+    sys_.process = timed_process
+    return per_frame
+
+
 def slam_phase(state, dev, smi, frames):
     """The offline SLAM path on the card over the held-out rendered room
     (texture seed 5), then the gates.  One System spins the first
@@ -1301,15 +1382,7 @@ def slam_phase(state, dev, smi, frames):
     ds = RenderedDataset(cfg, n_frames=SLAM_FRAMES, seed=5, noise_seed=0)
     sys_ = System(cfg, params=state, device=dev)
     spans = keep_samples(sys_.timer)
-    process = sys_.process
-    per_frame = []
-
-    def timed_process(raw):
-        t0 = time.perf_counter()
-        process(raw)
-        per_frame.append((time.perf_counter() - t0) * 1e3)
-
-    sys_.process = timed_process
+    per_frame = time_process(sys_)
     n_timed = SLAM_FRAMES - PROFILE_FRAMES
     zero_launches()
     torch.cuda.synchronize()
@@ -1382,7 +1455,9 @@ def slam_phase(state, dev, smi, frames):
         raise AssertionError(f"desc_sparse launched "
                              f"{launches['desc_sparse']} times for "
                              f"{SLAM_FRAMES} frames")
-    return launches, float(ate.rmse)
+    first = dict(wall_ms=wall * 1e3 / n_timed, spans=timed_spans,
+                 process=pf)
+    return launches, float(ate.rmse), first
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1516,7 +1591,8 @@ ONLINE_KERNELS = ("nms", "cov", "desc_sparse")  # once a frame after warmup
 ONLINE_TRACKED = 176  # frames tracked of SLAM_FRAMES (phase 6's 80 %)
 ONLINE_WAIT = 120.0   # seconds any wait of the phase may take
 # the TrackingKernels stages a run may call (tests/test_torch_warmup.py)
-STAGES = ("gather_rows", "dust_track", "dust_track_batch", "fused_track",
+STAGES = ("gather_rows", "dust_track", "dust_track_batch", "heat_track",
+          "fused_track",
           "motion_track", "motion_track_batch", "ref_track", "reloc_track",
           "reloc_track_batch", "local_map_track", "local_map_track_wide",
           "local_map_track_batch", "init_two_view", "triangulate_pair_batch",
@@ -2024,6 +2100,191 @@ CHECKS = ("pair1t", "pair1", "nms", "cov", "match", "desc_sparse",
           "desc_dense")
 
 
+# --------------------------------------------------------- phases 10, 10b
+
+HEAT_FRAMES = 120     # phase 10: the first frames of phase 6's room
+HEAT_TICKS = 30       # phase 10b: ticks of rooms HEAT_ROOMS (phase 7's)
+HEAT_ROOMS = (4, 5)
+HEAT_SPANS = ("tracking/frame", "tracking/total", "mapping")
+# the TrackingKernels stages of the dust coarse tracker, which the heat
+# variant replaces
+DUST_STAGES = ("dust_track", "dust_track_batch", "fused_track")
+
+
+def variants_config(cfg):
+    """`cfg` with the heat coarse tracker and the epipolar-walk
+    triangulation (coarse_method="heat", matching_method=2)."""
+    return dataclasses.replace(
+        cfg, tracking=dataclasses.replace(cfg.tracking,
+                                          coarse_method="heat"),
+        mapping=dataclasses.replace(cfg.mapping, matching_method=2))
+
+
+def dust_calls(seen):
+    return {k: v for k, v in seen.items() if k[0] in DUST_STAGES}
+
+
+def heat_phase(state, dev, smi, frames, slam_stats):
+    """The heat coarse tracker and the epipolar walk on the card:
+    `System(cfg, params, device="cuda")` at Config() defaults (752x480,
+    K=896, float32) with coarse_method="heat" and matching_method=2 spins
+    the first HEAT_FRAMES frames of phase 6's room with no profiler and no
+    synchronize of its own; gates: 0 LOST and ATE < 0.2 (the JAX
+    package's own run of these frames on the CPU met both, PERF.md),
+    nms / cov / desc_sparse once a frame and match at least once, the heat
+    stage called and no dust stage (`spy_stages`), method-2 triangulation
+    rows dispatched and map points committed from them.  Prints ms/frame,
+    `System.process` and the spans beside phase 6's over the same
+    frames."""
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.config import Config
+    from sp_orb_slam_tpu_torch.eval.ate import ate_sim3
+    from sp_orb_slam_tpu_torch.io.render import RenderedDataset
+    from sp_orb_slam_tpu_torch.slam.system import System
+
+    cfg = variants_config(Config())
+    frames = frames[:HEAT_FRAMES]
+    ds = RenderedDataset(cfg, n_frames=SLAM_FRAMES, seed=5, noise_seed=0)
+    sys_ = System(cfg, params=state, device=dev)
+    seen = spy_stages(sys_.kernels)
+    spans = keep_samples(sys_.timer)
+    per_frame = time_process(sys_)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sys_.spin(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches("heat + epipolar SLAM", SLAM_KERNELS)
+
+    rep = sys_.report()
+    ts, poses = sys_.trajectory()
+    tg, pg = ds.gt_trajectory()
+    ate = ate_sim3(ts, poses[:, :3, 3], tg, pg[:, :3, 3])
+    pf = np.asarray(per_frame)
+    n = len(frames)
+    pf6 = slam_stats["process"][:n]
+    lines = [f"heat + epipolar SLAM: {n} frames of the rendered room (seed "
+             f"5) at {cfg.camera.width}x{cfg.camera.height}, K="
+             f"{cfg.runtime.max_keypoints}, {cfg.extractor.dtype}, "
+             f"coarse_method=heat, matching_method=2 | {smi}",
+             f"heat + epipolar SLAM: wall {wall:.3f} s, "
+             f"{wall * 1e3 / n:.2f} ms/frame (phase 6: "
+             f"{slam_stats['wall_ms']:.2f} over its {SLAM_FRAMES - 1} "
+             f"frames) | {smi}",
+             span_line("heat + epipolar System.process ms/frame", pf, smi),
+             span_line(f"phase 6 System.process ms/frame, frames 0-{n - 1}",
+                       pf6, smi)]
+    for tag in HEAT_SPANS:
+        lines.append(span_line(f"heat + epipolar span {tag}",
+                               spans.get(tag, [0.0]), smi))
+        lines.append(span_line(f"phase 6 span {tag}, frames 0-{n - 1}",
+                               slam_stats["spans"].get(tag, [0.0])[:n], smi))
+    lines.append(f"heat + epipolar stages called: "
+                 f"{dict(sorted(seen.items()))}")
+    lines.append(f"heat + epipolar triangulation: rows by matching_method "
+                 f"{dict(sys_.kernels.tri_rows)}, map points committed "
+                 f"{sys_.mapper.n_tri_points}")
+    lines.append(f"heat + epipolar result: {json.dumps(rep, default=float)}"
+                 f" | ATE rmse {ate.rmse:.4f} mean {ate.mean:.4f} over "
+                 f"{ate.n_pairs} frames | {smi}")
+    log("\n".join(lines))
+    if not (rep["n_lost"] == 0 and ate.rmse < 0.2):
+        raise AssertionError("heat + epipolar gates failed (0 LOST, ATE "
+                             "rmse < 0.2)")
+    wrong = {k: launches[k] for k in LOOP_KERNELS if launches[k] != n}
+    if wrong or launches["match"] < 1:
+        raise AssertionError(f"heat + epipolar launches for {n} frames: "
+                             f"{launches}")
+    if seen[("heat_track", False)] < 1 or dust_calls(seen):
+        raise AssertionError(f"heat + epipolar: the heat stage must carry "
+                             f"the coarse stage: {dict(seen)}")
+    if (set(sys_.kernels.tri_rows) != {2} or sys_.kernels.tri_rows[2] < 1
+            or sys_.mapper.n_tri_points < 1):
+        raise AssertionError(f"heat + epipolar: no method-2 triangulation "
+                             f"committed ({dict(sys_.kernels.tri_rows)}, "
+                             f"{sys_.mapper.n_tri_points} points)")
+    return launches
+
+
+def heat_fleet_phase(state, dev, smi, rooms):
+    """The fleet under the heat coarse tracker on the card:
+    `StreamFleet(cfg, 2, params, device="cuda")` in bfloat16 (pair1) with
+    coarse_method="heat", warmed up, then HEAT_TICKS ticks of phase 7's
+    rooms HEAT_ROOMS; gates: 0 LOST per stream, the heat stage run by
+    every stream on its own and no dust stage (no batched dust prepass),
+    pair1, nms, cov and desc_sparse once a tick, pair1t never.  Prints
+    ms/tick."""
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.slam.fleet import StreamFleet
+
+    cfg = dataclasses.replace(fleet_config(), tracking=dataclasses.replace(
+        fleet_config().tracking, coarse_method="heat"))
+    n = len(HEAT_ROOMS)
+    fleet = StreamFleet(cfg, n, params=state, device=dev)
+    seen = spy_stages(fleet.kernels)
+    t0 = time.perf_counter()
+    fleet.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    seen.clear()
+    # each stream's heat stages, counted inside its own coarse stage
+    per_stream = [0] * n
+    for i, s in enumerate(fleet.systems):
+        def track(frame, _i=i, _fn=s.tracker._track_dust):
+            before = seen[("heat_track", False)]
+            try:
+                return _fn(frame)
+            finally:
+                per_stream[_i] += seen[("heat_track", False)] - before
+
+        s.tracker._track_dust = track
+    per_tick = []
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(HEAT_TICKS):
+        t1 = time.perf_counter()
+        fleet.tick([rooms[r][k] for r in HEAT_ROOMS])
+        per_tick.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches("heat fleet", FLEET_KERNELS[:4])
+    pt = np.asarray(per_tick)
+    lines = [f"heat fleet: {n} streams (rooms {HEAT_ROOMS}) x {HEAT_TICKS} "
+             f"ticks at {cfg.camera.width}x{cfg.camera.height}, K="
+             f"{cfg.runtime.max_keypoints}, {cfg.extractor.dtype}, "
+             f"conv_packing={cfg.extractor.conv_packing}, "
+             f"coarse_method=heat; warmup {warm_s:.2f} s | {smi}",
+             f"heat fleet: wall {wall:.3f} s, ms/tick median "
+             f"{np.median(pt):.2f} p90 {np.percentile(pt, 90):.2f} mean "
+             f"{pt.mean():.2f} max {pt.max():.2f} | {smi}",
+             f"heat fleet: stages called {dict(sorted(seen.items()))}, heat "
+             f"stages by stream {per_stream}, batched dust stream-frames "
+             f"{fleet.n_batched_dust}"]
+    ok = True
+    for i, s in enumerate(fleet.systems):
+        rep = s.report()
+        ok &= rep["n_lost"] == 0 and per_stream[i] > 0
+        lines.append(f"heat fleet stream {i} (room {HEAT_ROOMS[i]}): tracked "
+                     f"{rep['n_frames']} LOST {rep['n_lost']} KFs "
+                     f"{rep['n_keyframes']} fail_dust {rep['n_fail_dust']}")
+    log("\n".join(lines))
+    if not ok or dust_calls(seen) or fleet.n_batched_dust:
+        raise AssertionError("heat fleet gates failed (0 LOST and the heat "
+                             "stage on every stream, no dust stage)")
+    want = {"pair1": HEAT_TICKS, "nms": HEAT_TICKS, "cov": HEAT_TICKS,
+            "desc_sparse": HEAT_TICKS, "pair1t": 0}
+    wrong = {k: launches[k] for k, v in want.items() if launches[k] != v}
+    if wrong:
+        raise AssertionError(f"heat fleet launches {launches}: want {want}")
+    return launches
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     kernels_only = argv[:1] == ["--kernels"]
@@ -2112,7 +2373,7 @@ def main(argv) -> int:
     log(f"step: {json.dumps(stats)} | {smi}")
     log("\n".join(profile_step(step, carry)))
     stamp("frontend and step")
-    slam, ate_off = slam_phase(state, dev, smi, rooms[5])
+    slam, ate_off, slam_stats = slam_phase(state, dev, smi, rooms[5])
     stamp("SLAM")
     fleet = fleet_phase(state, dev, smi, rooms, gt)
     stamp("fleet")
@@ -2121,6 +2382,10 @@ def main(argv) -> int:
     online = online_phase(state, dev, smi, rooms[5], ate_off, ate_loop)
     online_gates(online)
     stamp("online SLAM + loop")
+    heat = heat_phase(state, dev, smi, rooms[5], slam_stats)
+    stamp("heat + epipolar SLAM")
+    heat_fleet = heat_fleet_phase(state, dev, smi, rooms)
+    stamp("heat fleet")
     # each kernel's launches on the path that runs it: the SLAM path for
     # its kernels, the bf16 frontend with conv_packing="pair1t" for pair1t,
     # desc_method="pallas" for desc_dense, the bf16 fleet for pair1
@@ -2135,8 +2400,11 @@ def main(argv) -> int:
         else:
             r["path"], r["launches"] = ("frontend_bf16_pair1t",
                                         pair1t_route["pair1t"])
-    keys = ("name", "route", "source", "replaces", "path",
-            "launches") + ROW_KEYS[1:]
+        # the launches of phase 10 (phase 10b for pair1)
+        r["launches_heat"] = (heat_fleet if r["name"] == "pair1"
+                              else heat)[r["name"]]
+    keys = ("name", "route", "source", "replaces", "path", "launches",
+            "launches_heat") + ROW_KEYS[1:]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(f"card: {smi}")

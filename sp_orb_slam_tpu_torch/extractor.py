@@ -60,11 +60,14 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
             cov_method: str = "auto", nms_method: str = "auto",
             desc_method: str = "auto", conv_packing: str = "auto",
             with_heat: bool = False, with_heat_inv: bool = True,
+            emission: str = "sort", heat_shuffle: str = "slices",
             compute_dtype: torch.dtype = torch.float32) -> Features:
     """images: (B, H, W) float32 in [0, 1], on the model's device.
 
     Method choices: `nms_method` "cuda" (kernel) or "xla" (plain fixed
-    point), `cov_method` "cuda" or "windowed" (plain fill), `conv_packing`
+    point), `cov_method` "cuda" (kernel), "windowed" (plain fill), "dense"
+    (the plain dense-ownership fill, ops/covariance.dense_covariance) or
+    "none" (unit covariance, zero response), `conv_packing`
     "pair1" or "pair1t" (the two fused first-pair kernels, bfloat16,
     H % 8 == 0 and W % 2 == 0) or "none"; "auto" picks the kernels on a
     CUDA device (pair1, the persistent kernel, faster than pair1t on the
@@ -74,7 +77,11 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
     (the sparse sampling kernel), "dense" (plain 9-tap stencil at every
     cell's candidate, then each keypoint's own cell row), "pallas" (the
     dense kernel, then the row pick); "auto" is "pallas_sparse" on a CUDA
-    device and "gather" on the CPU.  All four agree to float32 rounding."""
+    device and "gather" on the CPU.  All four agree to float32 rounding.
+    `emission` ("sort" | "scatter") and `heat_shuffle` ("slices" |
+    "transpose") name the JAX package's XLA lowerings of the raster
+    emission and the heat map's pixel shuffle, whose outputs are equal:
+    each value is checked and the one result computed."""
     if cov_radius > border:
         # the border filter is what keeps the (2r+1)^2 covariance window
         # centred on its keypoint; a clipped window de-centres the fill
@@ -90,11 +97,18 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
         nms_method = "cuda" if on_cuda else "xla"
     if desc_method == "auto":
         desc_method = "pallas_sparse" if on_cuda else "gather"
-    if desc_method not in ("gather", "pallas_sparse", "dense", "pallas"):
-        raise ValueError(f"unknown desc_method {desc_method!r}")
+    for name, value, known in (
+            ("desc_method", desc_method,
+             ("gather", "pallas_sparse", "dense", "pallas")),
+            ("cov_method", cov_method, ("cuda", "windowed", "dense", "none")),
+            ("emission", emission, ("sort", "scatter")),
+            ("heat_shuffle", heat_shuffle, ("slices", "transpose"))):
+        if value not in known:
+            raise ValueError(f"unknown {name} {value!r}")
 
     out = model(images, conf_thresh=conf_thresh, conv_packing=conv_packing,
-                with_heat=with_heat, with_heat_inv=True,
+                with_heat=with_heat,
+                with_heat_inv=with_heat_inv or cov_method != "none",
                 compute_dtype=compute_dtype)
 
     if nms_method == "cuda":
@@ -142,8 +156,12 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
         cov2, cov2_inv, response = cov_ops.keypoint_covariance(
             out.heat_inv, kps.uv, kps.valid, radius=cov_radius,
             iters=cov_iters)
-    else:
-        raise ValueError(f"unknown cov_method {cov_method!r}")
+    elif cov_method == "dense":
+        cov2, cov2_inv, response = cov_ops.dense_covariance(
+            out.heat_inv, kps.occ_grid, kps.uv, kps.valid, iters=cov_iters)
+    else:  # "none": unit covariance, zero response
+        cov2 = cov2_inv = torch.ones(kps.uv.shape, device=images.device)
+        response = torch.zeros(kps.valid.shape, device=images.device)
 
     return Features(kps.uv, kps.score, response, kps.valid, desc, cov2,
                     cov2_inv, kps.occ_grid, out.dense_dust, out.semi_dust,

@@ -187,6 +187,63 @@ def search_for_triangulation(desc1, valid1, free1, desc2, uv2, valid2, free2,
     return match21
 
 
+def search_for_tri_by_epi(desc1, uv1, free1, desc2, uv2, free2,
+                          epipole2_uv, F12, R21, K_intr, cov2_inv2, *,
+                          th_dist: float = TH_HIGH, band: float = 8.0):
+    """SearchForTriByEpi (sp_matcher.cpp:24-181), the `matching_method: 2`
+    triangulation matcher, in the JAX package's band-mask form: the walk
+    along the epipolar segment from the epipole e2 to 2 p_inf - e2 (p_inf:
+    the infinite-depth projection of a free KF1 feature, which must lie in
+    front of camera 2) becomes a band around that segment, t in [-slack,
+    1 + slack] and lateral^2 <= band^2 with slack = band / |segment|; a
+    candidate keypoint of KF2 must also pass the epipole-proximity gate
+    (d^2 >= 100) and the covariance-scaled epipolar-line gate (d^2 < 3.84 /
+    min cov2_inv).  The best L2 candidate below `th_dist` wins, each KF2
+    keypoint kept by its minimum-distance claimant.  Returns match21 (N2,)
+    index into KF1 features or -1."""
+    fx, fy, cx, cy = K_intr[0], K_intr[1], K_intr[2], K_intr[3]
+    # infinite-depth projection of each KF1 feature in image 2 (:56-63)
+    x1n = torch.stack([(uv1[:, 0] - cx) / fx, (uv1[:, 1] - cy) / fy,
+                       torch.ones_like(uv1[:, 0])], -1)       # (N1, 3)
+    with full_f32():
+        ray2 = x1n @ R21.T
+    z = torch.where(ray2[:, 2].abs() < 1e-9, 1e-9, ray2[:, 2])
+    p_inf = torch.stack([fx * ray2[:, 0] / z + cx,
+                         fy * ray2[:, 1] / z + cy], -1)        # (N1, 2)
+    seg_end = 2.0 * p_inf - epipole2_uv[None, :]  # uv += uv - e (:62-63)
+
+    # segment-band membership of every KF2 keypoint (the cell walk)
+    s = seg_end - epipole2_uv[None, :]                         # (N1, 2)
+    w = uv2[None, :, :] - epipole2_uv[None, None, :]           # (1, N2, 2)
+    ss = (s * s).sum(-1).clamp_min(1e-12)                      # (N1,)
+    t = (w[..., 0] * s[:, None, 0] + w[..., 1] * s[:, None, 1]) / ss[:, None]
+    lat2 = (w * w).sum(-1) - t * t * ss[:, None]               # (N1, N2)
+    slack = band / torch.sqrt(ss)
+    in_seg = ((t >= -slack[:, None]) & (t <= 1.0 + slack[:, None])
+              & (lat2 <= band * band) & (ray2[:, 2] > 0)[:, None])
+
+    # epipole proximity of the candidate (:125-131; scale factor 1)
+    de = uv2 - epipole2_uv[None, :]
+    far_from_epipole = (de * de).sum(-1) >= 100.0
+
+    # covariance-scaled epipolar-line gate (CheckDistEpipolarLine)
+    with full_f32():
+        lines = torch.cat([uv1, torch.ones_like(uv1[:, :1])], -1) @ F12
+    num = (lines[:, None, 0] * uv2[None, :, 0]
+           + lines[:, None, 1] * uv2[None, :, 1] + lines[:, None, 2])
+    den = lines[:, 0] ** 2 + lines[:, 1] ** 2
+    dsqr = num * num / den[:, None].clamp_min(1e-12)
+    factor = 1.0 / cov2_inv2.amin(-1).clamp_min(1e-12)
+    epi_ok = (den[:, None] > 0) & (dsqr < 3.84 * factor[None, :])
+
+    mask = (free1[:, None] & (free2 & far_from_epipole)[None, :]
+            & in_seg & epi_ok)
+    best, idx2, _ = masked_best2(pairwise_dist(desc1, desc2), mask)
+    row_ok = free1 & (best < th_dist)
+    _, match21 = resolve_mutual(idx2, best, row_ok, desc2.shape[0])
+    return match21
+
+
 def fuse_candidates(mp_desc, mp_proj_uv, mp_valid, kp_desc, kp_uv, kp_valid,
                     *, radius: float):
     """The device part of SPMatcher::Fuse (sp_matcher.cpp:965-1104): per

@@ -10,7 +10,10 @@ The port of the JAX package's optim/pose.py:
   iterations, reclassify at chi2 > 7.378, 10 more non-robust iterations;
 - `pose_optimization_dust` (PoseOptimizationDust): 1-d residual = bilinear
   sample of the 1/8 dustbin map at the projection (fx/8, (cx-3.5)/8),
-  Huber 0.9, 40 iterations, edges leaving the image latched off.
+  Huber 0.9, 40 iterations, edges leaving the image latched off;
+- `pose_optimization_heat` (PoseOptimizationHeat, optimizer_dust.cpp:
+  415-522): the same direct alignment on the full-resolution heat map with
+  the full-resolution intrinsics and the 0.02 chi2 inlier gate.
 
 `pose_optimization` also takes a batch of initial poses (S, 4, 4) against
 one set of edges: the relocalization multi-start fan.  The round loop is a
@@ -163,20 +166,18 @@ class DustResult(NamedTuple):
     Tcw: torch.Tensor
     inlier: torch.Tensor    # (N,) active & chi2 <= chi2_inlier
     n_inlier: torch.Tensor
-    proj_uv: torch.Tensor   # (N, 2) dust-grid projections at the final pose
+    proj_uv: torch.Tensor   # (N, 2) projections at the final pose, on the
+    #                         aligned map's grid (1/8 cells or pixels)
 
 
-def pose_optimization_dust(Tcw0: torch.Tensor, Xw: torch.Tensor,
-                           valid: torch.Tensor, dust: torch.Tensor,
-                           K_full: torch.Tensor, *, iters: int = 40,
-                           huber_delta: float = 0.9,
-                           chi2_inlier: float = 0.9) -> DustResult:
-    """Optimizer::PoseOptimizationDust.  dust (hc, wc) dustbin probability
-    map; K_full the full-resolution [fx, fy, cx, cy], scaled to the 1/8
-    grid inside."""
-    h, w = dust.shape
-    fx, fy = K_full[0] / 8.0, K_full[1] / 8.0
-    cx, cy = (K_full[2] - 3.5) / 8.0, (K_full[3] - 3.5) / 8.0
+def _direct_alignment(Tcw0, Xw, valid, img, fx, fy, cx, cy, *, iters,
+                      huber_delta, chi2_inlier) -> DustResult:
+    """Direct alignment of the points' projections on a map `img` (h, w)
+    whose value is the residual (types_dust_tracking.cpp): bilinear sample
+    at the projection, central-difference image gradient through the same
+    sample, Huber weight, edges leaving the image (border 1) or going
+    behind the camera latched off."""
+    h, w = img.shape
 
     def evaluate(Tcw, alive):
         pc = Xw @ Tcw[:3, :3].T + Tcw[:3, 3]
@@ -186,7 +187,7 @@ def pose_optimization_dust(Tcw0: torch.Tensor, Xw: torch.Tensor,
         # in-image test with border 1 (types_dust_tracking.cpp:36-41)
         ok = (alive & (z > 0.0) & (u >= 1.0) & (u + 2.0 < w) & (v >= 1.0)
               & (v + 2.0 < h))
-        err = torch.where(ok, _sample_bilinear(dust, u, v), 0.0)
+        err = torch.where(ok, _sample_bilinear(img, u, v), 0.0)
         return err, u, v, pc, ok
 
     def cost_of(err, ok):
@@ -197,10 +198,10 @@ def pose_optimization_dust(Tcw0: torch.Tensor, Xw: torch.Tensor,
         err, u, v, pc, ok = evaluate(Tcw, alive)
         w_rob = torch.where(ok, lm.huber_weight(err * err, huber_delta), 0.0)
         # central-difference image gradient (types_dust_tracking.cpp:131-137)
-        gu = (_sample_bilinear(dust, u + 1.0, v)
-              - _sample_bilinear(dust, u - 1.0, v)) / 2.0
-        gv = (_sample_bilinear(dust, u, v + 1.0)
-              - _sample_bilinear(dust, u, v - 1.0)) / 2.0
+        gu = (_sample_bilinear(img, u + 1.0, v)
+              - _sample_bilinear(img, u - 1.0, v)) / 2.0
+        gv = (_sample_bilinear(img, u, v + 1.0)
+              - _sample_bilinear(img, u, v - 1.0)) / 2.0
         Jp = _proj_jacobian(pc, fx, fy)
         J = gu[:, None] * Jp[:, 0, :] + gv[:, None] * Jp[:, 1, :]  # (N, 6)
         JW = J * w_rob[:, None]
@@ -232,3 +233,30 @@ def pose_optimization_dust(Tcw0: torch.Tensor, Xw: torch.Tensor,
     inlier = valid & alive & ok & (err * err <= chi2_inlier)
     return DustResult(Tcw, inlier, inlier.sum(dtype=torch.int32),
                       torch.stack([u, v], -1))
+
+
+def pose_optimization_dust(Tcw0: torch.Tensor, Xw: torch.Tensor,
+                           valid: torch.Tensor, dust: torch.Tensor,
+                           K_full: torch.Tensor, *, iters: int = 40,
+                           huber_delta: float = 0.9,
+                           chi2_inlier: float = 0.9) -> DustResult:
+    """Optimizer::PoseOptimizationDust.  dust (hc, wc) dustbin probability
+    map; K_full the full-resolution [fx, fy, cx, cy], scaled to the 1/8
+    grid inside (optimizer_dust.cpp:223-226)."""
+    return _direct_alignment(
+        Tcw0, Xw, valid, dust, K_full[0] / 8.0, K_full[1] / 8.0,
+        (K_full[2] - 3.5) / 8.0, (K_full[3] - 3.5) / 8.0, iters=iters,
+        huber_delta=huber_delta, chi2_inlier=chi2_inlier)
+
+
+def pose_optimization_heat(Tcw0: torch.Tensor, Xw: torch.Tensor,
+                           valid: torch.Tensor, heat: torch.Tensor,
+                           K_full: torch.Tensor, *, iters: int = 40,
+                           huber_delta: float = 0.9,
+                           chi2_inlier: float = 0.02) -> DustResult:
+    """Optimizer::PoseOptimizationHeat: the dust alignment on the
+    normalised full-resolution heat map (H, W) with the full-resolution
+    intrinsics; `proj_uv` is in full-resolution pixels."""
+    return _direct_alignment(
+        Tcw0, Xw, valid, heat, K_full[0], K_full[1], K_full[2], K_full[3],
+        iters=iters, huber_delta=huber_delta, chi2_inlier=chi2_inlier)

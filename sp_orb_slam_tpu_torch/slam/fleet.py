@@ -231,8 +231,10 @@ class StreamFleet:
     def _dust_prepass(self, frames: dict) -> None:
         """The dust stage of every OK stream as one batched call.  Streams
         where the prep finds nothing stage a no-points marker; streams not
-        in the OK dust regime (initializing, LOST, localization-vo
-        arbitration) keep the per-stream path."""
+        in the OK dust regime (initializing, LOST, the heat coarse tracker,
+        localization-vo arbitration) keep the per-stream path."""
+        if self.cfg.tracking.coarse_method == "heat":
+            return
         preps = []
         for i, frame in frames.items():
             t = self.systems[i].tracker
@@ -347,7 +349,8 @@ class StreamFleet:
         """Run the batched extraction + feature readback, every
         single-stream stage (TrackingKernels.warmup: the per-stream
         cascade, init, the mappers' stages and BA) and every batched stage
-        (dust, local narrow and wide, motion, reloc, in bank mode) once at
+        (dust unless the heat tracker runs per stream, local narrow and
+        wide, motion, reloc, in bank mode) once at
         fleet width on dummy inputs, so kernel builds, library loads and
         first-use allocations leave the timed ticks."""
         cfg = self.cfg
@@ -387,12 +390,14 @@ class StreamFleet:
                 cov, val(K))
         rrow = (np.stack([eye] * 16), np.zeros((L, 3), np.float32), br_l,
                 val(L), desc_k, uv, cov, val(K))
-        for stage, row in ((k.dust_track_batch, drow),
-                           (k.local_map_track_batch, lrow),
-                           (lambda rows, bank: k.local_map_track_batch(
-                               rows, wide=True, bank=bank), lrow),
-                           (k.motion_track_batch, mrow),
-                           (k.reloc_track_batch, rrow)):
+        stages = [(k.local_map_track_batch, lrow),
+                  (lambda rows, bank: k.local_map_track_batch(
+                      rows, wide=True, bank=bank), lrow),
+                  (k.motion_track_batch, mrow),
+                  (k.reloc_track_batch, rrow)]
+        if cfg.tracking.coarse_method != "heat":
+            stages.insert(0, (k.dust_track_batch, drow))
+        for stage, row in stages:
             rows, bank = self._bankify([row] * self.n)
             stage(rows, bank=bank)
         self._bank_stacks.clear()

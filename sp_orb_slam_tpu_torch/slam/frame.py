@@ -1,8 +1,9 @@
 """Per-frame data container.
 
 The port of the JAX package's slam/frame.py: fixed-capacity arrays with
-validity masks.  The descriptors, dust map and occupancy grid stay on the
-system's device for the tracking kernels; the small host mirrors (keypoint
+validity masks.  The descriptors, dust map and occupancy grid (and, for the
+heat coarse tracker, the full-resolution heat map) stay on the system's
+device for the tracking kernels; the small host mirrors (keypoint
 coords, covariance, counts) come back in one packed copy per frame.
 """
 
@@ -60,6 +61,8 @@ class FrameData:
     ref_kf: int = -1
     # place-recognition global descriptor, when the dataset provides one
     global_desc: Optional[np.ndarray] = None
+    # (H, W) on the device: the heat coarse tracker's map, when extracted
+    heat_dev: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         K = self.uv.shape[0]
@@ -117,4 +120,5 @@ def frame_from_features(feats: Features, b: int, frame_id: int,
         valid=host["valid"], cov2_inv=host["cov2_inv"],
         occ_grid=host["occ_grid"], count=int(host["count"]),
         desc_dev=feats.desc[b], dust_dev=feats.dense_dust[b],
-        occ_grid_dev=feats.occ_grid[b])
+        occ_grid_dev=feats.occ_grid[b],
+        heat_dev=feats.heat[b] if feats.heat is not None else None)

@@ -9,6 +9,8 @@ exactly as it does in the JAX package:
 
 - dust_track: PoseOptimizationDust -> 2x2 occ-grid patch association ->
   PoseOptimizationDustPost                (tracker_dust.cpp:22-228)
+- heat_track: the same with PoseOptimizationHeat on the full-resolution
+  heat map (coarse_method "heat")         (tracker_dust.cpp:405-446)
 - motion_track: SearchByProjection vs the last frame at radius th, retried
   at 2 th when thin, + 4x10 PoseOptimization (tracker.cpp:480-559)
 - ref_track / reloc_track: brute-force mutual NN vs a keyframe + pose
@@ -18,7 +20,8 @@ exactly as it does in the JAX package:
 - fused_track: dust_track flowing into local_map_track on the device
 - init_two_view: SearchForInitialization + the two-view bootstrap
                                           (mono_tracker.cpp:38-115)
-- triangulate_pair_batch: per-neighbour match + DLT + gates
+- triangulate_pair_batch: per-neighbour match (matching_method 1, the
+  exact 2-NN; 2, the epipolar walk) + DLT + gates
                                           (local_mapper.cpp:558-791)
 - fuse: projection fuse candidates        (sp_matcher.cpp:965-1104)
 
@@ -39,7 +42,9 @@ arguments and ONE packed readback (`upload_rows`, `PreStacked`,
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 from typing import Callable, List, Tuple, Union
 
 import numpy as np
@@ -245,15 +250,13 @@ def _dust_association(proj_uv, in_view, mp_desc_track, occ_grid, kp_desc,
                                    best_idx >= 0, K)
 
 
-def dust_track_body(Tcw_pred, mp_pos, mp_desc_track, mp_valid, dust,
-                    occ_grid, kp_desc, kp_uv, kp_cov2_inv, kp_valid, K_intr,
-                    *, dust_iters, huber_delta, chi2_inlier):
-    res = pose_opt.pose_optimization_dust(
-        Tcw_pred, mp_pos, mp_valid, dust, K_intr, iters=dust_iters,
-        huber_delta=huber_delta, chi2_inlier=chi2_inlier)
-    mp2kp, kp2mp = _dust_association(res.proj_uv, res.inlier, mp_desc_track,
+def _coarse_track(res, cell_uv, mp_pos, mp_desc_track, occ_grid, kp_desc,
+                  kp_uv, kp_cov2_inv, kp_valid, K_intr):
+    """The coarse stage after its direct alignment `res`: the 2x2 occ-grid
+    association at the projections `cell_uv` (1/8 cell coordinates), then
+    PoseOptimizationDustPost over the associated pairs."""
+    mp2kp, kp2mp = _dust_association(cell_uv, res.inlier, mp_desc_track,
                                      occ_grid, kp_desc, kp_valid)
-    # post reprojection optimization over the associated pairs
     kp_has = kp2mp >= 0
     post = pose_opt.pose_optimization_post(
         res.Tcw, mp_pos[kp2mp.clamp_min(0).long()], kp_uv, kp_cov2_inv,
@@ -263,6 +266,34 @@ def dust_track_body(Tcw_pred, mp_pos, mp_desc_track, mp_valid, dust,
         post_inlier=post.inlier, n_coarse=res.n_inlier,
         n_match=(mp2kp >= 0).sum(), n_opt=post.n_inlier,
         mp_in_view=res.inlier, mp_matched=mp2kp >= 0)
+
+
+def dust_track_body(Tcw_pred, mp_pos, mp_desc_track, mp_valid, dust,
+                    occ_grid, kp_desc, kp_uv, kp_cov2_inv, kp_valid, K_intr,
+                    *, dust_iters, huber_delta, chi2_inlier):
+    res = pose_opt.pose_optimization_dust(
+        Tcw_pred, mp_pos, mp_valid, dust, K_intr, iters=dust_iters,
+        huber_delta=huber_delta, chi2_inlier=chi2_inlier)
+    return _coarse_track(res, res.proj_uv, mp_pos, mp_desc_track, occ_grid,
+                         kp_desc, kp_uv, kp_cov2_inv, kp_valid, K_intr)
+
+
+def heat_track_body(Tcw_pred, mp_pos, mp_desc_track, mp_valid, heat,
+                    occ_grid, kp_desc, kp_uv, kp_cov2_inv, kp_valid, K_intr,
+                    *, heat_iters, huber_delta, chi2_inlier):
+    """trackFrameHeat (tracker_dust.cpp:405-446): the full-resolution heat
+    alignment (PoseOptimizationHeat) in place of the 1/8 dust alignment.
+    The reference stops after the alignment; as the JAX package does, the
+    dust stage's association and post optimization follow, so the variant
+    is a complete coarse tracker."""
+    res = pose_opt.pose_optimization_heat(
+        Tcw_pred, mp_pos, mp_valid, heat, K_intr, iters=heat_iters,
+        huber_delta=huber_delta, chi2_inlier=chi2_inlier)
+    # full-resolution pixels -> 1/8 cell coordinates with the dust
+    # intrinsics' offset (fx/8, (cx-3.5)/8; optimizer_dust.cpp:223-226)
+    return _coarse_track(res, (res.proj_uv - 3.5) / 8.0, mp_pos,
+                         mp_desc_track, occ_grid, kp_desc, kp_uv,
+                         kp_cov2_inv, kp_valid, K_intr)
 
 
 def motion_track_body(Tcw_pred, mp_pos, mp_desc_track, mp_valid, kp_desc,
@@ -435,13 +466,12 @@ def triangulate_body(Tcw1, Tcw2, kp1_uv, kp1_desc, kp1_cov2_inv, kp1_free,
                      kp2_uv, kp2_desc, kp2_cov2_inv, kp2_free, K_intr, *,
                      nn_ratio, method: int = 1, seed_px_noise: float = 1.0):
     """One neighbour-KF triangulation pass (local_mapper.cpp:615-791):
-    SearchForTri (method 1: exact 2-NN + epipole + epipolar gates) -> DLT
-    in normalized coordinates -> gates, plus each view's depth and its
+    SearchForTri (method 1: exact 2-NN + epipole + epipolar gates, the
+    FLANN equivalent; method 2: the epipolar-segment walk,
+    SearchForTriByEpi; dispatch at local_mapper.cpp:623-631) -> DLT in
+    normalized coordinates -> gates, plus each view's depth and its
     triangulation uncertainty for the depth filter.  KF1 = current KF,
     KF2 = neighbour."""
-    if method != 1:
-        raise NotImplementedError(
-            "matching_method 2 (SearchForTriByEpi) is not ported")
     fx, fy, cx, cy = K_intr[0], K_intr[1], K_intr[2], K_intr[3]
     R1, t1 = Tcw1[:3, :3], Tcw1[:3, 3]
     R2, t2 = Tcw2[:3, :3], Tcw2[:3, 3]
@@ -458,9 +488,14 @@ def triangulate_body(Tcw1, Tcw2, kp1_uv, kp1_desc, kp1_cov2_inv, kp1_free,
     C1_in_2 = R2 @ (-R1.T @ t1) + t2
     e2 = torch.stack([fx * C1_in_2[0] / C1_in_2[2] + cx,
                       fy * C1_in_2[1] / C1_in_2[2] + cy])
-    match21 = matching.search_for_triangulation(
-        kp1_desc, kp1_free, kp1_free, kp2_desc, kp2_uv, kp2_free, kp2_free,
-        e2, F12, kp1_uv, kp2_cov2_inv, ratio=nn_ratio)
+    if method == 2:
+        match21 = matching.search_for_tri_by_epi(
+            kp1_desc, kp1_uv, kp1_free, kp2_desc, kp2_uv, kp2_free, e2, F12,
+            R2 @ R1.T, K_intr, kp2_cov2_inv)
+    else:
+        match21 = matching.search_for_triangulation(
+            kp1_desc, kp1_free, kp1_free, kp2_desc, kp2_uv, kp2_free,
+            kp2_free, e2, F12, kp1_uv, kp2_cov2_inv, ratio=nn_ratio)
     has = match21 >= 0
     idx1 = match21.clamp_min(0).long()
     uv1 = kp1_uv[idx1]
@@ -523,9 +558,6 @@ class TrackingKernels:
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device available; pass device='cpu' "
                                "to run the tracking stages on the CPU")
-        if cfg.tracking.coarse_method != "dust":
-            raise NotImplementedError(
-                "coarse_method 'heat' (PoseOptimizationHeat) is not ported")
         self.cfg = cfg
         self.device = dev
         K = cfg.runtime.max_keypoints
@@ -577,6 +609,12 @@ class TrackingKernels:
         m = cfg.tracking.map
         self._dust_kw = dict(dust_iters=d.iters, huber_delta=d.huber_delta,
                              chi2_inlier=d.chi2_inlier)
+        self._heat_kw = dict(heat_iters=d.iters, huber_delta=d.huber_delta,
+                             chi2_inlier=cfg.tracking.heat_chi2_inlier)
+        # triangulation rows dispatched, by matching_method (the online
+        # fleet's mapping threads share these stages: counted under a lock)
+        self.tri_rows = collections.Counter()
+        self._tri_lock = threading.Lock()
         self._local_kw = dict(view_cos_th=m.th_view_cos,
                               match_adaptive=m.match_adaptive,
                               c2_thresh=d.c2_thresh)
@@ -661,6 +699,9 @@ class TrackingKernels:
     def _dust_fn(self, *a):
         return dust_track_body(*a, self.K_intr, **self._dust_kw)
 
+    def _heat_fn(self, *a):
+        return heat_track_body(*a, self.K_intr, **self._heat_kw)
+
     def _motion_fn(self, *a):
         mo = self.cfg.tracking.motion
         return motion_track_body(*a, self.K_intr, self.bounds,
@@ -694,6 +735,15 @@ class TrackingKernels:
     def dust_track(self, *args):
         return self._read(self.dust_layout,
                           self.dust_layout.pack(**self._dust_fn(
+                              *self._up(args))))
+
+    @_stage
+    def heat_track(self, *args):
+        """The heat coarse stage (coarse_method "heat"): dust_track's
+        arguments with the frame's full-resolution heat map (H, W) in place
+        of its dust map, dust_track's fields."""
+        return self._read(self.dust_layout,
+                          self.dust_layout.pack(**self._heat_fn(
                               *self._up(args))))
 
     @_stage
@@ -779,6 +829,8 @@ class TrackingKernels:
     def triangulate_pair_batch(self, rows):
         """Every neighbour row's triangulation, one packed upload and
         readback per chunk of 8 rows."""
+        with self._tri_lock:
+            self.tri_rows[self.cfg.mapping.matching_method] += len(rows)
         return self._batch_chunked(self._tri_fn, self.tri_layout, rows)
 
     @_stage
@@ -797,7 +849,8 @@ class TrackingKernels:
     def warmup(self, pool_capacity: int = 4096, ba: bool = True) -> None:
         """Run every single-stream stage once at its production shapes on
         dummy inputs (JAX TrackingKernels.warmup): the descriptor gathers,
-        dust, fused and fused-wide, motion, ref, reloc at the keypoint and
+        dust (heat under coarse_method "heat"), fused and fused-wide (dust
+        only), motion, ref, reloc at the keypoint and
         the local-map caps, local and local-wide, init, triangulation and
         fuse (alone and batched) and, with `ba`, the local BA at its caps
         and the init-time global BA at its smallest power-of-two sizes.
@@ -835,8 +888,14 @@ class TrackingKernels:
         desc_l = self.gather_rows(bank, np.zeros(L, np.int32), val_l)
         desc_kf = self.gather_rows(desc_k, np.zeros(K, np.int32), val_k)
 
-        self.dust_track(eye, pos_d, desc_p, val_d, dust, occ, desc_k, uv,
-                        cov, val_k)
+        if cfg.tracking.coarse_method == "heat":
+            heat = torch.zeros((cfg.camera.height, cfg.camera.width),
+                               device=dev)
+            self.heat_track(eye, pos_d, desc_p, val_d, heat, occ, desc_k, uv,
+                            cov, val_k)
+        else:
+            self.dust_track(eye, pos_d, desc_p, val_d, dust, occ, desc_k,
+                            uv, cov, val_k)
         self.motion_track(eye, pos_l, desc_l, val_l, desc_k, uv, cov, val_k)
         self.ref_track(eye, pos_k, desc_kf, val_k, desc_k, uv, cov, val_k)
         T0s = np.tile(eye, (16, 1, 1))
@@ -848,7 +907,7 @@ class TrackingKernels:
                  np.full(K, -1, np.int64), desc_k, uv, cov, val_k)
         self.local_map_track(*largs)
         self.local_map_track_wide(*largs)
-        if cfg.tracking.fused_ok_path:
+        if cfg.tracking.fused_ok_path and cfg.tracking.coarse_method == "dust":
             fargs = (eye, pos_d, desc_p, val_d, dust, occ, pos_l, desc_l,
                      normal_l, val_l, np.full(P, -1, np.int32), desc_k, uv,
                      cov, val_k)

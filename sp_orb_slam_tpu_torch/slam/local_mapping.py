@@ -345,6 +345,9 @@ class LocalMapping:
         self.error: Optional[BaseException] = None  # what ended the thread
         self.depth_filter = (DepthFilter(cfg, world, kernels.K_np)
                              if cfg.mapping.depth_filter.enabled else None)
+        # map points the triangulation passes committed (direct, rescued
+        # and promoted from seeds)
+        self.n_tri_points = 0
 
     # ------------------------------------------------------------------ API
 
@@ -574,6 +577,7 @@ class LocalMapping:
         df = self.depth_filter
         dfc = self.cfg.mapping.depth_filter
         n_direct = 0
+        n_recent = len(self.recent_pids)
         deferred = []  # (rel, kf2_id, j, i, X) for the starvation guard
         neighbors = kf.best_covisible(self.cfg.mapping.triangulation_num_kfs)
         Ow1 = kf.Ow
@@ -664,6 +668,7 @@ class LocalMapping:
                     n_direct += 1
                     df.n_rescued += 1
             df.prune(kf.kf_id)
+        self.n_tri_points += len(self.recent_pids) - n_recent
 
     def _promote_seed(self, owner_id: int, slot: int, other_id: int,
                       oidx: int) -> None:

@@ -206,7 +206,9 @@ class System:
             count=inj["count"], global_desc=raw.global_desc,
             desc_dev=torch.as_tensor(inj["desc"], device=dev),
             dust_dev=torch.as_tensor(inj["dust"], device=dev),
-            occ_grid_dev=torch.as_tensor(inj["occ_grid"], device=dev))
+            occ_grid_dev=torch.as_tensor(inj["occ_grid"], device=dev),
+            heat_dev=(torch.as_tensor(inj["heat"], device=dev)
+                      if inj.get("heat") is not None else None))
         f._desc_host = inj["desc"]
         return f
 

@@ -20,7 +20,8 @@ drive (`track_frame`), the fleet's phased drive (`coarse_phase1/2`, the
 `track_frame_fine`; slam/fleet.py) and localization mode (`only_tracking`,
 `vo_mode`); each drive holds the map lock as the JAX package's does, so
 the online mode's mapping and loop threads interleave only between them.
-The heat coarse tracker waits for its variant.  The two-view
+`coarse_method="heat"` runs the heat coarse tracker in the dust stage's
+place (per stream in the fleet, as in the JAX package).  The two-view
 init's RANSAC draws come from a torch.Generator seeded 31415926
 (initializer.cpp:77), one draw per attempt (`_init_draws`).
 
@@ -353,6 +354,7 @@ class Tracking:
 
         Returns True when results were staged."""
         if (not self.cfg.tracking.fused_ok_path or self.only_tracking
+                or self.cfg.tracking.coarse_method != "dust"
                 or self.last_frame is None):
             return False
         # _track_coarse runs this first in the two-call path; the dust
@@ -649,7 +651,14 @@ class Tracking:
                 self.fail_dust_stages["no_points"] += 1
                 return False
             pids, Tcw_pred, args = prep
-            out = self.k.dust_track(*args)
+            if (self.cfg.tracking.coarse_method == "heat"
+                    and frame.heat_dev is not None):
+                # the heat alignment variant (trackFrameHeat,
+                # tracker_dust.cpp:405-446) behind the config switch
+                out = self.k.heat_track(*args[:4], frame.heat_dev,
+                                        *args[5:])
+            else:
+                out = self.k.dust_track(*args)
 
         # viz/state feedback on the candidate points
         for li, pid in enumerate(pids):

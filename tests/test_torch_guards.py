@@ -49,6 +49,7 @@ import sp_orb_slam_tpu_torch.eval.ate, sp_orb_slam_tpu_torch.utils.timing
 import sp_orb_slam_tpu_torch.run_vo
 import sp_orb_slam_tpu_torch.optim.sim3, sp_orb_slam_tpu_torch.models.netvlad
 import sp_orb_slam_tpu_torch.slam.loop_closing
+import sp_orb_slam_tpu_torch.eval.batch, sp_orb_slam_tpu_torch.evaluate
 
 def banned(name):
     # the port's own name starts with "sp_orb_slam_tpu": match the JAX
@@ -70,7 +71,8 @@ def test_port_imports_no_jax():
     for mod in ("extractor", "slam.system", "run_vo", "ops.cuda_desc",
                 "ops.cuda_pair1", "slam.serialize", "slam.fleet",
                 "optim.sim3", "models.netvlad", "slam.loop_closing",
-                "io.dataset", "io.native_loader"):
+                "io.dataset", "io.native_loader", "eval.batch",
+                "evaluate"):
         assert f"sp_orb_slam_tpu_torch.{mod}" in out[1], mod
 
 
@@ -84,25 +86,35 @@ def test_make_extractor_raises_without_card():
 
 
 @pytest.mark.parametrize("entry", ["system", "tracking_kernels", "run_vo",
-                                   "fleet", "load_map"])
+                                   "fleet", "load_map", "heat_epi_system",
+                                   "heat_fleet", "evaluate"])
 def test_slam_entry_points_default_to_the_card(entry):
-    """System, TrackingKernels, StreamFleet, serialize.load_map and the
-    run_vo command line run on the card unless told otherwise, and raise
-    without one."""
+    """System, TrackingKernels, StreamFleet (also with the heat coarse
+    tracker and the epipolar walk), serialize.load_map and the run_vo and
+    evaluate command lines run on the card unless told otherwise, and
+    raise without one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; this checks the no-card path")
-    from sp_orb_slam_tpu_torch import run_vo
+    from sp_orb_slam_tpu_torch import evaluate, run_vo
+    from sp_orb_slam_tpu_torch.config import _merge_dataclass
     from sp_orb_slam_tpu_torch.slam import serialize
     from sp_orb_slam_tpu_torch.slam.fleet import StreamFleet
     from sp_orb_slam_tpu_torch.slam.kernels import TrackingKernels
     from sp_orb_slam_tpu_torch.slam.system import System
 
+    variants = _merge_dataclass(Config(), {
+        "tracking": {"coarse_method": "heat"},
+        "mapping": {"matching_method": 2}})
     call = {"system": lambda: System(Config()),
             "tracking_kernels": lambda: TrackingKernels(Config()),
             "run_vo": lambda: run_vo.main(["--dataset", "synthetic",
                                            "--synthetic-frames", "2"]),
             "fleet": lambda: StreamFleet(Config(), 2, params=None),
-            "load_map": lambda: serialize.load_map("no_such_map.npz")}
+            "load_map": lambda: serialize.load_map("no_such_map.npz"),
+            "heat_epi_system": lambda: System(variants),
+            "heat_fleet": lambda: StreamFleet(variants, 2, params=None),
+            "evaluate": lambda: evaluate.main(["--runs", "1", "--seqs", "1",
+                                               "--max-frames", "2"])}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call[entry]()
 

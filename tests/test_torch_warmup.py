@@ -3,10 +3,11 @@ TrackingKernels.warmup, LoopClosing.warmup) against what a run calls.
 
 The JAX package's tests/test_warmup.py counts XLA compile variants, which
 have no counterpart here.  These tests spy on the stage methods of
-TrackingKernels instead (chip_smoke.spy_stages, which phase 9 applies on
-the card): after warmup, a synthetic run calls no stage (nor stage
+TrackingKernels instead (chip_smoke.spy_stages, which phases 9 and 10 apply
+on the card): after warmup, a synthetic run calls no stage (nor stage
 variant: fused and local-map windows, unbatched and vmapped mapper
-batches) that warmup did not call.
+batches) that warmup did not call; under the heat coarse tracker the heat
+stage takes the dust stages' place in warmup and in the run.
 """
 
 import importlib.util
@@ -91,6 +92,43 @@ def test_fleet_warmup_covers_ticks():
     for i, s in enumerate(fleet.systems):
         assert s.tracker.state == tr.OK, (i, s.report())
     assert seen
+    assert not set(seen) - warmed, set(seen) - warmed
+
+
+@pytest.mark.parametrize("entry", ["system", "fleet"])
+def test_heat_warmup_covers_a_run(entry):
+    """Under coarse_method="heat", warmup runs the heat stage in the dust
+    stage's place (and no batched dust stage in the fleet), and a run
+    calls only stages warmup called: heat_track, never dust_track,
+    dust_track_batch or fused_track."""
+    from sp_orb_slam_tpu_torch.slam.fleet import StreamFleet
+
+    cfg = _cfg(tracking={"num_features": 250, "coarse_method": "heat"})
+    streams = [list(SyntheticDataset(cfg, n_frames=30, n_points=5000,
+                                     seed=s, pixel_noise=0.3))
+               for s in ((6,) if entry == "system" else (3, 4))]
+    if entry == "system":
+        runner = System(cfg, device="cpu")
+        kernels, systems = runner.kernels, [runner]
+    else:
+        runner = StreamFleet(cfg, 2, params=None, device="cpu")
+        kernels, systems = runner.kernels, runner.systems
+    seen = spy_stages(kernels)
+    runner.warmup()
+    warmed = set(seen)
+    seen.clear()
+    if entry == "system":
+        runner.spin(streams[0])
+    else:
+        for k in range(30):
+            runner.tick([st[k] for st in streams])
+        runner.shutdown()
+    for s in systems:
+        assert s.tracker.state == tr.OK, s.report()
+    assert ("heat_track", False) in warmed and ("heat_track", False) in seen
+    dust = {(n, False) for n in ("dust_track", "dust_track_batch",
+                                 "fused_track")}
+    assert not dust & (warmed | set(seen)), dict(seen)
     assert not set(seen) - warmed, set(seen) - warmed
 
 
