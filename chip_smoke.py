@@ -44,6 +44,13 @@ only, for the named kernels or all seven, printing the kernel rows and no
    "pallas" against "gather", and with cov_method "dense" (the same
    responses, median relative cov2 difference < 0.1, cov2 >= 1) and
    "none" (unit covariance, zero response) beside the cov kernel's;
+   then the JAX package's space-to-depth lowerings (conv_packing "s2d",
+   "s2d2", "s2d3", which the port runs as "none"), measured: the first
+   three conv pairs with the first 1, 2 or 3 on the packed layout against
+   all three unpacked, in float32 on frames 0 and 2 of room 5 within 1e-5 of
+   max |unpacked|, then timed at B=32, 752x480 in both dtypes (CUDA
+   events, in turns); and the SuperPoint forward alone at B=32 for
+   float32 and bfloat16 "none", pair1 and pair1t;
 4. step time: the extract + init-match step of bench.py (B=32, bfloat16,
    through pair1) as frames/s over the wall time of 50 steps;
 5. profile: the same step under torch.profiler, with the device's idle
@@ -100,7 +107,23 @@ only, for the named kernels or all seven, printing the kernel rows and no
    device="cuda")` in bfloat16 (pair1), warmed up, over 30 ticks of phase
    7's rooms 4 and 5: gates 0 LOST per stream, the heat stage on every
    stream and no dust stage, pair1 / nms / cov / desc_sparse once a tick;
-   ms per tick.
+   ms per tick;
+11. training (train/superpoint_train.py; cuDNN convs and autograd, since
+   the JAX package's training reaches no Pallas kernel): (a) the port's
+   build_pool at 320x240 (2 scenes x 16 pairs, fx 260: the checkpoint's
+   training camera) and with Config()'s 752x480 camera (1 x 8), with
+   their corner-cell and corresponding-cell shares; (b) one step at B=2,
+   320x240 from weights/sp_rendered.npz on the card against the port's CPU
+   path on the same batch (the loss terms, the 24 gradients, the updated
+   parameters, at stated tolerances); (c) `train` from init_params(seed
+   0), 200 steps at B=8, 320x240: every logged loss finite and its fall
+   at least the gate set from the JAX package's CPU run; (d) ms per step
+   (CUDA events, 20 steps after warm-up), images/s and peak memory at B=8
+   at both sizes, and a few steps profiled for the idle share and the
+   device time by kernel group; (e) (c)'s state through `save_npz` into a
+   temporary directory, reloaded (JAX's keys and shapes), then the
+   bfloat16 extractor (pair1, NMS, cov, desc_sparse) and the init matcher
+   on frames 0 and 2 of room 5: finite outputs and keypoints.
 
 Every path is driven with the launch counters zeroed just before it and
 read just after (phase 9: after its warmup), and fails if a kernel of that
@@ -1037,6 +1060,28 @@ def gates(tag, feats, m12, ds, fa, fb):
         raise AssertionError(f"{tag}: main-path gates failed")
 
 
+def match_pair(feats):
+    """Frame 0 -> frame 2 of a two-image batch, as match_init_batch takes
+    them."""
+    return (feats.desc[:1], feats.valid[:1], feats.uv[:1],
+            feats.desc[1:], feats.uv[1:], feats.valid[1:])
+
+
+def extract_and_match(cfg, state, dev, images):
+    """`make_extractor(cfg, state, device=dev)` on the two images, then the
+    init matcher kernel from the first to the second."""
+    import torch
+
+    from sp_orb_slam_tpu_torch.extractor import make_extractor
+    from sp_orb_slam_tpu_torch.ops import cuda_match
+
+    feats = make_extractor(cfg, state, device=dev)(images)
+    m12, _, _ = cuda_match.match_init_batch(*match_pair(feats), window=100,
+                                            ratio=0.9)
+    torch.cuda.synchronize()
+    return feats, m12
+
+
 def main_path(state, dev):
     import numpy as np
     import torch
@@ -1044,7 +1089,6 @@ def main_path(state, dev):
     from sp_orb_slam_tpu_torch.config import Config
     from sp_orb_slam_tpu_torch.extractor import make_extractor
     from sp_orb_slam_tpu_torch.io.render import RenderedDataset
-    from sp_orb_slam_tpu_torch.ops import cuda_match
     from sp_orb_slam_tpu_torch.ops.matching import init_match
 
     cfg = Config()
@@ -1052,17 +1096,8 @@ def main_path(state, dev):
     fa, fb = ds.frame(0), ds.frame(2)
     images = np.stack([fa.image, fb.image]).astype(np.float32) / 255.0
 
-    def pair(feats):  # frame 0 -> frame 2, as match_init_batch takes them
-        return (feats.desc[:1], feats.valid[:1], feats.uv[:1],
-                feats.desc[1:], feats.uv[1:], feats.valid[1:])
-
     def run(cfg_x):
-        run_ex = make_extractor(cfg_x, state, device=dev)
-        feats = run_ex(images)
-        m12, n, _ = cuda_match.match_init_batch(*pair(feats), window=100,
-                                                ratio=0.9)
-        torch.cuda.synchronize()
-        return feats, m12
+        return extract_and_match(cfg_x, state, dev, images)
 
     bf = dataclasses.replace(cfg, extractor=dataclasses.replace(
         cfg.extractor, dtype="bfloat16"))
@@ -1087,14 +1122,14 @@ def main_path(state, dev):
         desc_method="gather"))
     run_p = make_extractor(plain, state, device=dev)
     f_p = run_p(images)
-    m_p, _, _ = init_match(*pair(f_k), window=100, ratio=0.9)
+    m_p, _, _ = init_match(*match_pair(f_k), window=100, ratio=0.9)
     torch.cuda.synchronize()
     gates("f32 kernels", f_k, m_k, ds, fa, fb)
     same_uv = torch.equal(f_k.uv, f_p.uv) and torch.equal(f_k.count,
                                                           f_p.count)
     cov_err = float((f_k.cov2 - f_p.cov2).abs().max())
     desc_err = float((f_k.desc - f_p.desc).abs().max())
-    bad, excused = match_disagreements(pair(f_k), m_k, m_p)
+    bad, excused = match_disagreements(match_pair(f_k), m_k, m_p)
     log(f"f32 kernels vs plain: uv/count identical {same_uv}, "
         f"cov2 max_abs_err {cov_err:.3e}, desc max_abs_err {desc_err:.3e}, "
         f"counts {f_k.count.tolist()}, match12 rows differing {len(bad)} "
@@ -1172,6 +1207,189 @@ def cov_routes(state, dev, images, f_k):
                 f"{launches['cov']}")
         if not ok or launches["cov"] != 0:
             raise AssertionError(f"cov_method={method}: gates failed")
+
+
+# SuperPoint forward configurations timed at B=32, 752x480: (compute dtype,
+# conv_packing)
+FORWARD_ROUTES = (("float32", "none"), ("bfloat16", "none"),
+                  ("bfloat16", "pair1"), ("bfloat16", "pair1t"))
+FORWARD_ROUNDS, FORWARD_ITERS = 3, 5
+# the first three conv pairs with the first S2D_DEPTHS of them on the 2x2
+# space-to-depth layout (the JAX package's conv_packing "s2d", "s2d2",
+# "s2d3", which the port runs as "none"), timed against depth 0; in float32
+# the packed pairs' output within S2D_F32_RTOL of max |unpacked| (an exact
+# repacking: only cuDNN's summation order differs)
+S2D_DEPTHS = (1, 2, 3)
+S2D_F32_RTOL = 1e-5
+
+
+def room_pair(frames):
+    """Frames 0 and 2 of the held-out room 5 (`frames`, rendered up front
+    for phase 6), its dataset for the ray cast, and the two images in
+    [0, 1]."""
+    import numpy as np
+
+    from sp_orb_slam_tpu_torch.config import Config
+    from sp_orb_slam_tpu_torch.io.render import RenderedDataset
+
+    ds = RenderedDataset(Config(), n_frames=SLAM_FRAMES, seed=5,
+                         noise_seed=0)
+    fa, fb = frames[0], frames[2]
+    return ds, fa, fb, np.stack([fa.image, fb.image]).astype(
+        np.float32) / 255.0
+
+
+def with_extractor(cfg, **kw):
+    return dataclasses.replace(cfg, extractor=dataclasses.replace(
+        cfg.extractor, **kw))
+
+
+def pack_conv(w, b):
+    """The JAX package's `_pack_conv`: one 3x3 `same` conv, HWIO (3, 3,
+    Cin, Cout), as the exact conv on the 2x2 space-to-depth layout, HWIO
+    (3, 3, 4 Cin, 4 Cout); sub-position s = 2 dy + dx leads the packed
+    channel index.  Tap (dy, dx) of output sub-position (a, c) lands on
+    packed offset ((a+dy)//2, (c+dx)//2) and input sub-position
+    ((a+dy)%2, (c+dx)%2)."""
+    import numpy as np
+
+    cin, cout = w.shape[2:]
+    wp = np.zeros((3, 3, 4 * cin, 4 * cout), w.dtype)
+    for a in (0, 1):
+        for c in (0, 1):
+            so = 2 * a + c
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    si = 2 * ((a + dy) % 2) + (c + dx) % 2
+                    wp[(a + dy) // 2 + 1, (c + dx) // 2 + 1,
+                       si * cin:(si + 1) * cin,
+                       so * cout:(so + 1) * cout] += w[dy + 1, dx + 1]
+    return wp, np.tile(b, 4)
+
+
+def conv_pairs(model, x, depth, packed):
+    """SuperPoint's first three conv pairs and pools on x (B, 1, H, W,
+    channels-last, in the compute dtype), the first `depth` of them on the
+    space-to-depth layout with `packed` {name: (OIHW weight, bias)}: conv,
+    conv, then the max over the 4 sub-position groups (the pair's pool)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sp_orb_slam_tpu_torch.models.superpoint import PAIRS
+
+    for i, (na, nb) in enumerate(PAIRS):
+        if i < depth:
+            n, c, h, w = x.shape
+            xp = x.reshape(n, c, h // 2, 2, w // 2, 2).permute(
+                0, 3, 5, 1, 2, 4).reshape(n, 4 * c, h // 2, w // 2)
+            xp = xp.contiguous(memory_format=torch.channels_last)
+            xp = model._conv_wb(model._conv_wb(xp, *packed[na]), *packed[nb])
+            n, c, h, w = xp.shape
+            x = xp.view(n, 4, c // 4, h, w).amax(1).contiguous(
+                memory_format=torch.channels_last)
+        else:
+            x = F.max_pool2d(model._conv(model._conv(x, na), nb), 2)
+    return x
+
+
+def s2d_pairs(state, dev, smi, frames):
+    """The JAX package's space-to-depth lowerings, measured: the first
+    three conv pairs with the first 1, 2 or 3 on the packed layout
+    (`pack_conv`), against all three unpacked (the route the port runs for
+    every conv_packing "s2d*").  In float32 on frames 0 and 2 of room 5
+    the packed output within S2D_F32_RTOL of max |unpacked| (bfloat16's is
+    printed); then both timed at B=32, 752x480 in turns (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.models.superpoint import PAIRS, SuperPoint
+    from sp_orb_slam_tpu_torch.utils.precision import full_f32
+
+    model = SuperPoint({k: v.to(dev) for k, v in state.items()}).eval()
+    packed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name in sum(PAIRS, ()):
+            m = getattr(model, name)
+            wp, bp = pack_conv(
+                m.weight.detach().cpu().permute(2, 3, 1, 0).numpy(),
+                m.bias.detach().cpu().numpy())
+            packed[dtype, name] = (
+                torch.from_numpy(wp).permute(3, 2, 0, 1).to(
+                    dev, dtype, memory_format=torch.channels_last),
+                torch.from_numpy(bp).to(dev, dtype))
+
+    def run(x, depth):
+        with torch.inference_mode(), full_f32():
+            w = {n: packed[x.dtype, n] for n in sum(PAIRS, ())}
+            return conv_pairs(model, x, depth, w)
+
+    def inputs(images, dtype):
+        return torch.as_tensor(images, device=dev)[:, None].to(
+            dtype).contiguous(memory_format=torch.channels_last)
+
+    images = room_pair(frames)[3]
+    for dtype in (torch.float32, torch.bfloat16):
+        x = inputs(images, dtype)
+        ref = run(x, 0).float()
+        for d in S2D_DEPTHS:
+            err = float((run(x, d).float() - ref).abs().max()
+                        / ref.abs().max())
+            log(f"{dtype} first 3 pairs, {d} packed vs none: max|diff| / "
+                f"max|none| {err:.3e}")
+            if dtype == torch.float32 and not err <= S2D_F32_RTOL:
+                raise AssertionError(f"s2d depth {d} disagrees with none")
+    x32 = np.random.default_rng(0).random((B, H, W), np.float32)
+    xs = {dt: inputs(x32, dt) for dt in (torch.float32, torch.bfloat16)}
+    times = {(dt, d): [] for dt in xs for d in (0,) + S2D_DEPTHS}
+    for _ in range(FORWARD_ROUNDS):
+        for dt, d in times:
+            times[dt, d].append(cuda_ms(lambda: run(xs[dt], d),
+                                        iters=FORWARD_ITERS, warmup=1))
+    lines = [f"first 3 conv pairs, B={B} {W}x{H}, the first d on the "
+             f"space-to-depth layout, ms a call (CUDA events, "
+             f"{FORWARD_ITERS} calls, {FORWARD_ROUNDS} rounds in turns: "
+             f"median [min, max]) | {smi}"]
+    for (dt, d), ts in times.items():
+        med, base = np.median(ts), np.median(times[dt, 0])
+        lines.append(f"  {str(dt)[6:]:<8} d={d} {med:9.3f} [{min(ts):.3f}, "
+                     f"{max(ts):.3f}]  x{med / base:.3f} of d=0")
+    log("\n".join(lines + forward_times(state, dev, smi)))
+
+
+def forward_times(state, dev, smi):
+    """The SuperPoint forward alone (no heat maps) at B=32, 752x480 for
+    each of FORWARD_ROUTES, CUDA events over FORWARD_ITERS back-to-back
+    calls, the routes taken in turns FORWARD_ROUNDS times.  Returns the
+    lines to print."""
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.models.superpoint import SuperPoint
+
+    model = SuperPoint({k: v.to(dev) for k, v in state.items()}).eval()
+    x = torch.as_tensor(np.random.default_rng(0).random((B, H, W),
+                                                        np.float32),
+                        device=dev)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def call(dtype, packing):
+        with torch.inference_mode():
+            model(x, conv_packing=packing, with_heat=False,
+                  with_heat_inv=False, compute_dtype=dtypes[dtype])
+
+    times = {r: [] for r in FORWARD_ROUTES}
+    for _ in range(FORWARD_ROUNDS):
+        for r in FORWARD_ROUTES:
+            times[r].append(cuda_ms(lambda: call(*r), iters=FORWARD_ITERS,
+                                    warmup=1))
+    lines = [f"SuperPoint forward alone, B={B} {W}x{H}, ms a call (CUDA "
+             f"events, {FORWARD_ITERS} calls, {FORWARD_ROUNDS} rounds in "
+             f"turns: median [min, max]) | {smi}"]
+    for (dtype, p), ts in times.items():
+        med, base = np.median(ts), np.median(times[dtype, "none"])
+        lines.append(f"  {dtype:<8} {p:<6} {med:9.3f} [{min(ts):.3f}, "
+                     f"{max(ts):.3f}]  x{med / base:.3f} of {dtype} none")
+    return lines
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2285,6 +2503,303 @@ def heat_fleet_phase(state, dev, smi, rooms):
     return launches
 
 
+# ---------------------------------------------------------------- phase 11
+
+# the training pools: (width, height) -> (fx, scenes, pairs a scene); the
+# first is the camera weights/sp_rendered.npz was trained with (fx 260,
+# centred principal point), the second the SLAM paths' own (fx None:
+# Config()'s EuRoC camera)
+TRAIN_SIZES = {(320, 240): (260.0, 2, 16), (752, 480): (None, 1, 8)}
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LOG = 200, 8, 10
+TRAIN_LR = 1e-3
+# leg (c)'s gate on the loss's fall: the mean of the last TRAIN_TAIL logged
+# losses at most TRAIN_FALL of the step-0 loss, the descriptor term's at
+# most TRAIN_DESC_FALL of its own.  The JAX package met 0.356 and 0.207 on
+# the CPU and the port's CPU path 0.35 and 0.22 (PERF.md)
+TRAIN_TAIL, TRAIN_FALL, TRAIN_DESC_FALL = 6, 0.5, 0.35
+TIMED_STEPS, TIMED_WARMUP, PROFILED_STEPS = 20, 3, 3
+# leg (b)'s tolerances: the loss terms relative; each gradient's max |diff|
+# against its max |g|, to the CPU path in float32 and in float64.  The
+# CPU's own float32 gradients part from float64 by up to 9.4e-4 of max|g|
+# (convDa), the card's by up to 9.5e-5 (conv1a, whose 9 weights an output
+# channel each sum 4 x 76,800 pixel products; cuDNN picks FFT and Winograd
+# algorithms there) (PERF.md)
+STEP_LOSS_RTOL, STEP_GRAD_TOL, STEP_GRAD_TOL_F64 = 1e-4, 1e-3, 2e-4
+# kernel-name fragments (lower case) -> leg (d)'s groups, the first match
+# taken: cuDNN's FFT convolutions (forward or backward: their transforms
+# and complex products) apart from its direct ones
+TRAIN_GROUPS = (
+    ("optimizer (Adam, foreach)", ("multi_tensor_apply",)),
+    ("cuDNN conv, FFT (fwd or bwd)", ("fft", "cf32", "complex")),
+    ("cuDNN conv backward", ("dgrad", "wgrad")),
+    ("cuDNN conv forward", ("fprop", "convolve", "conv2d", "cudnn",
+                            "implicit")),
+    ("f32 GEMM (the InfoNCE bmm, fwd and bwd)", ("gemm", "nvjet",
+                                                 "cutlass")),
+)
+
+
+def train_group(kernel_name):
+    name = kernel_name.lower()
+    return next((g for g, keys in TRAIN_GROUPS
+                 if any(k in name for k in keys)), OTHER)
+
+
+def train_pools():
+    """Leg (a): the port's build_pool at each of TRAIN_SIZES, seed 0.
+    Returns {(width, height): (cfg, pool)}."""
+    from sp_orb_slam_tpu_torch.config import Config
+    from sp_orb_slam_tpu_torch.train import superpoint_train as tt
+
+    pools = {}
+    for (w, h), (fx, scenes, pairs) in TRAIN_SIZES.items():
+        t0 = time.perf_counter()
+        cfg = Config() if fx is None else tt.camera_config(w, h, fx)
+        pool = tt.build_pool(cfg, n_scenes=scenes, pairs_per_scene=pairs,
+                             seed=0, verbose=False)
+        log(f"train pool {w}x{h}: {scenes} scenes x {pairs} pairs in "
+            f"{time.perf_counter() - t0:.1f} s; corner cells "
+            f"{(pool['lab_a'] != 64).mean():.4f}, corresponding cells "
+            f"{(pool['corr'] >= 0).mean():.4f}")
+        pools[(w, h)] = (cfg, pool)
+    return pools
+
+
+def train_step_on(state, batch, device, dtype=None):
+    """One training step of `state` on `device` from numpy `batch` (in
+    `dtype`, float32 by default): the loss terms, the 24 gradients and the
+    updated parameters, on the CPU."""
+    import torch
+
+    from sp_orb_slam_tpu_torch.models.superpoint import SuperPoint
+    from sp_orb_slam_tpu_torch.train import superpoint_train as tt
+
+    dtype = dtype or torch.float32
+    model = SuperPoint({k: v.to(dtype, copy=True) for k, v in state.items()})
+    model = model.to(device).train()
+    step = tt.make_train_step(model, TRAIN_STEPS, TRAIN_LR)
+    inputs = tt.to_device(batch, device)
+    inputs[:2] = [x.to(dtype) for x in inputs[:2]]
+    terms = [float(t) for t in step(*inputs)]
+    grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    params = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    return terms, grads, params
+
+
+def adam_first_error(p0, p1, g):
+    """max |(p0 - p1) - lr g / (|g| + 1e-8)| over a tensor, in units of the
+    float32 spacing at its largest |p0| (at least lr * 1e-6, the update's
+    own float32 rounding): how far one step's parameters are from Adam's
+    first update of that step's own gradient."""
+    import numpy as np
+
+    p0, p1, g = (np.asarray(t, np.float64) for t in (p0, p1, g))
+    want = TRAIN_LR * g / (np.abs(g) + 1e-8)
+    unit = max(float(np.spacing(np.float32(np.abs(p0).max()))),
+               TRAIN_LR * 1e-6)
+    return float(np.abs((p0 - p1) - want).max() / unit)
+
+
+def step_card_vs_cpu(state, batch, dev):
+    """Leg (b): one training step on the card against the port's CPU path
+    on the same numpy batch, in float32 and in float64.  The loss terms
+    and the 24 gradients within the STEP_* tolerances; the parameters are
+    compared through Adam: its first update moves an entry by lr * g /
+    (|g| + 1e-8), about lr * sign(g), so an entry whose gradient is under
+    the two devices' rounding may step either way (up to 2 lr apart); each
+    device's parameters must be its own gradient's update within one
+    float32 spacing.  Prints and returns its lines, and raises past the
+    gates."""
+    import torch
+
+    t0 = time.perf_counter()
+    card = train_step_on(state, batch, dev)
+    t1 = time.perf_counter()
+    cpu = train_step_on(state, batch, torch.device("cpu"))
+    t2 = time.perf_counter()
+    f64 = train_step_on(state, batch, torch.device("cpu"), torch.float64)
+    rel = [abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0])]
+    lines = [f"train step card vs cpu (B={batch[0].shape[0]}, "
+             f"{batch[0].shape[2]}x{batch[0].shape[1]}; card "
+             f"{t1 - t0:.2f} s with set-up, cpu {t2 - t1:.2f} s): loss / "
+             f"det / desc card {card[0]} cpu {cpu[0]} (float64 {f64[0]}), "
+             f"relative {' / '.join(f'{r:.2e}' for r in rel)}"]
+    bad = [f"loss terms {rel}"] if max(rel) > STEP_LOSS_RTOL else []
+    for k in card[1]:
+        g_card, g_cpu = card[1][k], cpu[1][k]
+        scale = float(g_cpu.abs().max())
+        gerr = float((g_card - g_cpu).abs().max()) / scale
+        g64 = f64[1][k]
+        gerr64 = float((g_card.double() - g64).abs().max()
+                       / g64.abs().max())
+        cpu64 = float((g_cpu.double() - g64).abs().max() / g64.abs().max())
+        d = (card[2][k] - cpu[2][k]).abs()
+        adam = max(adam_first_error(state[k], card[2][k], g_card),
+                   adam_first_error(state[k], cpu[2][k], g_cpu))
+        lines.append(f"  {k:<14} grad max|diff|/max|g| {gerr:.3e}, vs f64 "
+                     f"{gerr64:.3e} (cpu {cpu64:.3e}); params max|diff| "
+                     f"{float(d.max()):.3e}, share > 1e-5 "
+                     f"{float((d > 1e-5).float().mean()):.2e}, Adam "
+                     f"{adam:.2f} spacings")
+        if (gerr > STEP_GRAD_TOL or gerr64 > STEP_GRAD_TOL_F64
+                or adam > 1.0):
+            bad.append(k)
+    log("\n".join(lines))
+    if bad:
+        raise AssertionError(f"training step, card vs cpu: {bad}")
+    return lines
+
+
+def train_timings(cfg, pool, dev, smi):
+    """Leg (d): TIMED_STEPS steps at B=TRAIN_BATCH after TIMED_WARMUP,
+    each between CUDA events (the host's batch draw and upload included,
+    as `train` runs them; that host part is also timed alone), then
+    PROFILED_STEPS steps under torch.profiler for the idle share and the
+    device time by kernel group.  Returns the lines to print."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sp_orb_slam_tpu_torch.models.superpoint import (SuperPoint,
+                                                         init_params)
+    from sp_orb_slam_tpu_torch.train import superpoint_train as tt
+
+    w, h = cfg.camera.width, cfg.camera.height
+    model = SuperPoint(init_params(torch.Generator().manual_seed(1)))
+    model = model.to(dev).train()
+    step = tt.make_train_step(model, TRAIN_STEPS, TRAIN_LR)
+    draws = tt.batches(pool, TRAIN_BATCH, seed=1)
+    for _ in range(TIMED_WARMUP):
+        step(*tt.to_device(next(draws), dev))
+    torch.cuda.synchronize()
+    # the host's part of a step alone: the batch draw and the upload's issue
+    draw = []
+    for _ in range(TIMED_WARMUP):
+        t0 = time.perf_counter()
+        tt.to_device(next(draws), dev)
+        draw.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(TIMED_STEPS + 1)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    for m in marks[1:]:
+        loss = step(*tt.to_device(next(draws), dev))[0]
+        m.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    ms = np.array([a.elapsed_time(b) for a, b in zip(marks, marks[1:])])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not torch.isfinite(loss):
+        raise AssertionError(f"training {w}x{h}: loss {float(loss)}")
+    med = float(np.median(ms))
+    lines = [f"train {w}x{h} B={TRAIN_BATCH}: {med:.3f} ms/step median "
+             f"(CUDA events, {TIMED_STEPS} steps: min {ms.min():.3f} max "
+             f"{ms.max():.3f}; wall {wall:.3f}), "
+             f"{2 * TRAIN_BATCH * 1e3 / med:.1f} images/s, peak memory "
+             f"{peak:.3f} GiB ({before:.3f} of it allocated before the "
+             f"steps); the host's batch draw and upload alone "
+             f"{np.median(draw):.3f} ms | {smi}"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            step(*tt.to_device(next(draws), dev))
+        torch.cuda.synchronize()
+        wall_p = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    rows = [(event_device_us(ev) / 1e3 / PROFILED_STEPS, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and not ev.key.startswith("ProfilerStep")
+            and event_device_us(ev) > 0]
+    if not rows:
+        raise AssertionError("profiler: no device time recorded")
+    busy = sum(r[0] for r in rows)
+    groups = {}
+    for t, name in rows:
+        groups[train_group(name)] = groups.get(train_group(name), 0.0) + t
+    lines.append(f"  profiled {PROFILED_STEPS} steps: wall {wall_p:.3f} "
+                 f"ms/step, device busy {busy:.3f}, idle share "
+                 f"{1 - busy / wall_p:.3f}")
+    lines += [f"  {t:9.3f} ms/step  [{g}]"
+              for g, t in sorted(groups.items(), key=lambda x: -x[1])]
+    lines += [f"  {t:9.3f} ms/step  {short_name(name)[:90]}"
+              for t, name in sorted(rows, reverse=True)[:12]]
+    return lines
+
+
+def train_phase(state, dev, smi, frames):
+    """Phase 11: SuperPoint training through the port's train module (the
+    JAX package's training reaches no Pallas kernel: cuDNN convs and
+    autograd), legs (a)-(e); see the module docstring."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.config import Config
+    from sp_orb_slam_tpu_torch.models import weights
+    from sp_orb_slam_tpu_torch.models.superpoint import LAYERS
+    from sp_orb_slam_tpu_torch.train import superpoint_train as tt
+
+    pools = train_pools()
+    cfg_s, pool_s = pools[(320, 240)]
+    # (b) one step, card against the port's CPU path
+    step_card_vs_cpu(state, next(tt.batches(pool_s, 2, seed=0)), dev)
+    # (c) from init_params(seed 0), as `train` runs
+    t0 = time.perf_counter()
+    trained, hist = tt.train(cfg_s, pool_s, steps=TRAIN_STEPS,
+                             batch=TRAIN_BATCH, lr=TRAIN_LR, seed=0,
+                             log_every=TRAIN_LOG, verbose=False, device=dev)
+    secs = time.perf_counter() - t0
+    hist = np.array(hist)
+    tail = hist[-TRAIN_TAIL:, 1:].mean(0)
+    fall, dfall = tail[0] / hist[0, 1], tail[2] / hist[0, 3]
+    log(f"train from init (seed 0), {TRAIN_STEPS} steps B={TRAIN_BATCH} "
+        f"320x240 in {secs:.1f} s: history (step, loss, det, desc) "
+        f"{hist.round(4).tolist()}; last {TRAIN_TAIL} logs' mean loss "
+        f"{tail[0]:.4f} = {fall:.3f} of step 0's (gate {TRAIN_FALL}), desc "
+        f"{tail[2]:.4f} = {dfall:.3f} (gate {TRAIN_DESC_FALL}) | {smi}")
+    if not (np.isfinite(hist).all() and fall <= TRAIN_FALL
+            and dfall <= TRAIN_DESC_FALL):
+        raise AssertionError("training from init: the loss did not fall")
+    # (d) the step's time at both sizes
+    for cfg, pool in pools.values():
+        log("\n".join(train_timings(cfg, pool, dev, smi)))
+    # (e) the checkpoint through both loaders' format and the extractor
+    ds, fa, fb, images = room_pair(frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sp_train.npz")
+        weights.save_npz(trained, path)
+        loaded = weights.load_checkpoint(path)
+        with np.load(path) as z:
+            files = {k: z[k].shape for k in z.files}
+    want = {**{f"{n}.weight": (co, ci, k, k) for n, ci, co, k in LAYERS},
+            **{f"{n}.bias": (co,) for n, ci, co, k in LAYERS}}
+    same = all(torch.equal(loaded[k], trained[k]) for k in trained)
+    if files != want or not same:
+        raise AssertionError(f"saved checkpoint: {files} vs {want}, "
+                             f"reloaded equal {same}")
+    bf = with_extractor(Config(), dtype="bfloat16")
+    zero_launches()
+    feats, m12 = extract_and_match(bf, loaded, dev, images)
+    launches = read_launches("frontend bf16, the trained checkpoint",
+                             FRONTEND_KERNELS)
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        feats.uv, feats.score, feats.desc, feats.cov2, feats.response,
+        feats.dense_dust))
+    counts = feats.count.tolist()
+    log(f"trained checkpoint ({len(files)} arrays, JAX's keys and shapes) "
+        f"through the bf16 extractor on room 5 frames 0 and 2: keypoints "
+        f"{counts}, init matches {int((m12 >= 0).sum())}, finite {finite}")
+    if not finite or min(counts) < 1:
+        raise AssertionError("trained checkpoint: extractor gates failed")
+    return launches
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     kernels_only = argv[:1] == ["--kernels"]
@@ -2368,6 +2883,7 @@ def main(argv) -> int:
 
     stamp("kernels")
     front, pair1t_route, dense_route = main_path(state, dev)
+    s2d_pairs(state, dev, smi, rooms[5])
     step = make_step(state, dev)
     stats, carry = step_fps(step)
     log(f"step: {json.dumps(stats)} | {smi}")
@@ -2386,6 +2902,8 @@ def main(argv) -> int:
     stamp("heat + epipolar SLAM")
     heat_fleet = heat_fleet_phase(state, dev, smi, rooms)
     stamp("heat fleet")
+    train_phase(state, dev, smi, rooms[5])
+    stamp("training")
     # each kernel's launches on the path that runs it: the SLAM path for
     # its kernels, the bf16 frontend with conv_packing="pair1t" for pair1t,
     # desc_method="pallas" for desc_dense, the bf16 fleet for pair1

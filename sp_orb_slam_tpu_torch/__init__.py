@@ -1,10 +1,12 @@
 """PyTorch + CUDA port of sp_orb_slam_tpu for NVIDIA Hopper (H100).
 
 The JAX package `sp_orb_slam_tpu` is the reference; this package imports
-nothing of it and nothing of JAX.  Ported so far: the learned frontend
+nothing of it and nothing of JAX.  Ported: the learned frontend
 (`extractor.make_extractor`), the init matcher
-(`ops.cuda_match.match_init_batch`) and the offline SLAM path
-(`slam.system.System`, `run_vo`), with six of the seven TPU kernels as
+(`ops.cuda_match.match_init_batch`), SLAM (`slam.system.System`, `run_vo`)
+with loop closing, the online mode and multi-stream serving
+(`slam.fleet.StreamFleet`), the batch evaluation (`evaluate`) and SuperPoint
+training (`train.superpoint_train`), with the seven TPU kernels as
 hand-written CUDA kernels in `csrc/` (built on first use by `ops/_build.py`).
 Entry points run on the card unless the caller passes `device="cpu"`.
 """

@@ -275,7 +275,11 @@ class ExtractorConfig:
     #                             on a CUDA device, "none" (cuDNN / CPU
     #                             convs) elsewhere; "pair1t"
     #                             (ops/cuda_pair1t.py, the transposed
-    #                             design of the same function) on request
+    #                             design of the same function) on request;
+    #                             "s2d" / "s2d2" / "s2d3" (the JAX
+    #                             package's space-to-depth lowerings of
+    #                             the same function) run as "none", the
+    #                             faster of the two on the H100 (PERF.md)
     dtype: str = "float32"     # compute dtype of the conv net ("bfloat16" for speed)
 
 

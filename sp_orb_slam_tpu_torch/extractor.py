@@ -69,19 +69,21 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
     (the plain dense-ownership fill, ops/covariance.dense_covariance) or
     "none" (unit covariance, zero response), `conv_packing`
     "pair1" or "pair1t" (the two fused first-pair kernels, bfloat16,
-    H % 8 == 0 and W % 2 == 0) or "none"; "auto" picks the kernels on a
-    CUDA device (pair1, the persistent kernel, faster than pair1t on the
-    H100 at B=1, 8 and 32 (PERF.md), when bfloat16, H % 8 == 0 and
-    W % 2 == 0) and the plain versions on the CPU.  `desc_method`:
-    "gather" (plain 4-corner sampling at each keypoint), "pallas_sparse"
-    (the sparse sampling kernel), "dense" (plain 9-tap stencil at every
-    cell's candidate, then each keypoint's own cell row), "pallas" (the
-    dense kernel, then the row pick); "auto" is "pallas_sparse" on a CUDA
-    device and "gather" on the CPU.  All four agree to float32 rounding.
-    `emission` ("sort" | "scatter") and `heat_shuffle` ("slices" |
-    "transpose") name the JAX package's XLA lowerings of the raster
-    emission and the heat map's pixel shuffle, whose outputs are equal:
-    each value is checked and the one result computed."""
+    H % 8 == 0 and W % 2 == 0) or "none" ("s2d", "s2d2" and "s2d3", the
+    JAX package's space-to-depth lowerings, run as "none"); "auto" picks the
+    kernels on a CUDA device (pair1, the persistent kernel, faster than
+    pair1t on the H100 at B=1, 8 and 32 (PERF.md), when bfloat16,
+    H % 8 == 0 and W % 2 == 0) and the plain versions on the CPU.
+    `desc_method`: "gather" (plain 4-corner sampling at each keypoint),
+    "pallas_sparse" (the sparse sampling kernel), "dense" (plain 9-tap
+    stencil at every cell's candidate, then each keypoint's own cell row),
+    "pallas" (the dense kernel, then the row pick); "auto" is
+    "pallas_sparse" on a CUDA device and "gather" on the CPU.  All four
+    agree to float32 rounding.  `emission` ("sort" | "scatter") and
+    `heat_shuffle` ("slices" | "transpose") name the JAX package's XLA
+    lowerings of the raster emission and the heat map's pixel shuffle,
+    whose outputs are equal: each value is checked and the one result
+    computed."""
     if cov_radius > border:
         # the border filter is what keeps the (2r+1)^2 covariance window
         # centred on its keypoint; a clipped window de-centres the fill

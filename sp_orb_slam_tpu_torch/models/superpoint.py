@@ -7,7 +7,9 @@ head convPa(256, 3x3) + convPb(65, 1x1) and a descriptor head
 convDa(256, 3x3) + convDb(256, 1x1), L2-normalised.  The detector head is
 finished in the log-sum-exp form: per-cell score and in-cell argmax pixel
 (`cand_uv`), the dustbin maps, and the full-resolution heat map normalised
-to [0, 1] (`heat_inv` peaks at keypoints).
+to [0, 1] (`heat_inv` peaks at keypoints).  `train_forward` is the
+training forward (semi logits and unit coarse descriptors, with gradients),
+and `init_params` draws a fresh state.
 
 Public layouts are the JAX package's: (B, hc, wc) cell maps, NHWC
 `coarse_desc` (B, hc, wc, 256), `cand_uv` (B, hc, wc, 2).  Inside, the conv
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -46,6 +49,12 @@ LAYERS = (
     ("convDb", C5, D1, 1),
 )
 
+PAIRS = (("conv1a", "conv1b"), ("conv2a", "conv2b"), ("conv3a", "conv3b"))
+# the JAX package's space-to-depth lowerings of the first 1-3 pairs: the
+# same function as "none", which is faster on the H100 (PERF.md), so they
+# run as "none"
+S2D = ("s2d", "s2d2", "s2d3")
+
 
 class FrontendOut(NamedTuple):
     """Dense frontend outputs for a batch of B images (H, W)."""
@@ -60,12 +69,31 @@ class FrontendOut(NamedTuple):
     heat_inv: torch.Tensor | None  # (B, H, W) 1 - heat (peaks at keypoints)
 
 
+def init_params(generator: torch.Generator) -> dict[str, torch.Tensor]:
+    """A fresh float32 state dict on the CPU: Kaiming-uniform weights with
+    bound sqrt(6 / fan_in) and biases with bound 1 / sqrt(fan_in) (the
+    JAX package's `init_params`), drawn layer by layer, weight then bias,
+    from `generator`."""
+    state = {}
+    for name, cin, cout, k in LAYERS:
+        fan_in = cin * k * k
+        for key, shape, bound in (("weight", (cout, cin, k, k),
+                                   float(np.sqrt(6.0 / fan_in))),
+                                  ("bias", (cout,),
+                                   float(1.0 / np.sqrt(fan_in)))):
+            state[f"{name}.{key}"] = torch.empty(shape).uniform_(
+                -bound, bound, generator=generator)
+    return state
+
+
 class SuperPoint(nn.Module):
     """The 12 convs of `LAYERS`, named as in the reference checkpoint
     (`conv1a.weight`, ...), built from a state dict (models/weights.py);
-    the module takes the state's tensors and their device.  The weights
-    are fixed once built: their copy in each compute dtype and device is
-    cast on first use."""
+    the module takes the state's tensors and their device.  For inference
+    the weights are fixed once built: their copy in each compute dtype and
+    device is cast on first use.
+    `train_forward` reads the parameters themselves; a trained state goes
+    into a new module."""
 
     def __init__(self, state: dict[str, torch.Tensor]):
         super().__init__()
@@ -88,11 +116,35 @@ class SuperPoint(nn.Module):
                     for name, *_ in LAYERS}
         return self._cast[key]
 
+    @staticmethod
+    def _conv_wb(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 relu: bool = True) -> torch.Tensor:
+        y = F.conv2d(x, w, b, padding=w.shape[-1] // 2)
+        return y.relu_() if relu else y
+
     def _conv(self, x: torch.Tensor, name: str,
               relu: bool = True) -> torch.Tensor:
-        w, b = self._weights(x)[name]
-        y = F.conv2d(x, w, b, padding=getattr(self, name).padding)
-        return y.relu_() if relu else y
+        return self._conv_wb(x, *self._weights(x)[name], relu)
+
+    def train_forward(self, images: torch.Tensor):
+        """images (B, H, W) float32 in [0, 1] -> (semi logits (B, hc, wc,
+        65), coarse descriptors (B, hc, wc, 256) divided by max(norm,
+        1e-8)): the forward without the inference post-processing, on the
+        module's parameters, so gradients reach them (the JAX package's
+        train/superpoint_train.py `train_forward`)."""
+        def conv(x, name, relu=True):
+            m = getattr(self, name)
+            return self._conv_wb(x, m.weight, m.bias, relu)
+
+        x = images[:, None]
+        for na, nb in PAIRS:
+            x = F.max_pool2d(conv(conv(x, na), nb), 2)
+        x = conv(conv(x, "conv4a"), "conv4b")
+        semi = conv(conv(x, "convPa"), "convPb", relu=False)
+        coarse = conv(conv(x, "convDa"), "convDb", relu=False)
+        coarse = coarse / torch.linalg.vector_norm(
+            coarse, dim=1, keepdim=True).clamp_min(1e-8)
+        return semi.permute(0, 2, 3, 1), coarse.permute(0, 2, 3, 1)
 
     def forward(self, images: torch.Tensor, *, conf_thresh: float = 0.007,
                 cell: int = 8, conv_packing: str = "none",
@@ -105,7 +157,9 @@ class SuperPoint(nn.Module):
         `Precision.HIGHEST`); heads and probabilities finish in float32.
         `conv_packing` "pair1t" or "pair1" runs the first conv pair as one
         fused kernel (bfloat16 only; two designs of the same function,
-        ops/cuda_pair1t.py and ops/cuda_pair1.py)."""
+        ops/cuda_pair1t.py and ops/cuda_pair1.py); "s2d", "s2d2" and "s2d3",
+        the JAX package's space-to-depth lowerings of the same function,
+        run as "none"."""
         with full_f32():
             return self._forward(images, conf_thresh, cell, conv_packing,
                                  with_heat, with_heat_inv, compute_dtype)
@@ -121,12 +175,11 @@ class SuperPoint(nn.Module):
                      else cuda_pair1.fused_pair1)
             x = fused(images, self.conv1a.weight, self.conv1a.bias,
                       self.conv1b.weight, self.conv1b.bias).permute(0, 3, 1, 2)
-            pairs = (("conv2a", "conv2b"), ("conv3a", "conv3b"))
-        elif conv_packing == "none":
+            pairs = PAIRS[1:]
+        elif conv_packing == "none" or conv_packing in S2D:
             x = images[:, None].to(compute_dtype).contiguous(
                 memory_format=torch.channels_last)
-            pairs = (("conv1a", "conv1b"), ("conv2a", "conv2b"),
-                     ("conv3a", "conv3b"))
+            pairs = PAIRS
         else:
             raise ValueError(f"unknown conv_packing {conv_packing!r}")
         for na, nb in pairs:

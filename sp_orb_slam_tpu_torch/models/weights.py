@@ -10,7 +10,9 @@ from either
 - a torch .pt/.pth: a state dict, a pickled module or a torchscript archive.
 
 `params_from_jax` converts the JAX package's parameter pytree
-{name: {w: HWIO, b}} into the same state dict.
+{name: {w: HWIO, b}} into the same state dict and `params_to_jax` back;
+`save_npz` writes a state dict as the .npz interchange file that both
+packages' `load_checkpoint` read.
 """
 
 from __future__ import annotations
@@ -69,3 +71,26 @@ def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
            for n, p in params.items()},
         **{f"{n}.bias": np.asarray(p["b"], np.float32)
            for n, p in params.items()}})
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's state dict -> the JAX package's parameters
+    {name: {"w": (kh, kw, cin, cout), "b": (cout,)}} as float32 numpy
+    copies."""
+    def arr(t):
+        return np.array(t.detach().cpu(), np.float32)
+
+    return {name: {"w": arr(state[f"{name}.weight"]).transpose(2, 3, 1, 0),
+                   "b": arr(state[f"{name}.bias"])}
+            for name, *_ in LAYERS}
+
+
+def save_npz(state: Dict[str, torch.Tensor], path: str) -> None:
+    """Write a state dict as the .npz interchange format: keys
+    "<layer>.weight" (OIHW) and "<layer>.bias", float32 (the JAX package's
+    models/weights.py `save_npz` writes the same file from its
+    parameters)."""
+    np.savez(path, **{
+        f"{name}.{key}": np.array(state[f"{name}.{key}"].detach().cpu(),
+                                  np.float32)
+        for name, *_ in LAYERS for key in ("weight", "bias")})

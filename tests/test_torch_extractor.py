@@ -100,7 +100,7 @@ def test_extract_rejects_bad_options(jparams, images):
     x = torch.from_numpy(images)
     for kw in (dict(cov_radius=9, border=8), dict(nms_method="pallas"),
                dict(cov_method="bogus"), dict(desc_method="stencil"),
-               dict(conv_packing="s2d"), dict(emission="bogus")):
+               dict(conv_packing="s2d4"), dict(emission="bogus")):
         with pytest.raises(ValueError):
             extract(model, x, num_features=NF, max_keypoints=K, **kw)
 

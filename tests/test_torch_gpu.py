@@ -421,3 +421,28 @@ def test_noop_kernel(cuda):
     _build.noop(cuda)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["noop"] == n + 1
+
+
+def test_train_step_card_vs_cpu(cuda):
+    """One training step (train/superpoint_train.py: cuDNN convs, autograd,
+    Adam) on the card against the port's CPU path on the same batch, from
+    a seeded init at full widths on a small rendered pool: the loss terms,
+    all 24 gradients and the updated parameters at chip_smoke.py phase
+    11's tolerances (`step_card_vs_cpu` raises past them)."""
+    import importlib.util
+    import os
+
+    from sp_orb_slam_tpu_torch.models.superpoint import init_params
+    from sp_orb_slam_tpu_torch.train import superpoint_train as tt
+
+    pool = tt.build_pool(tt.camera_config(96, 64, 78.0), n_scenes=1,
+                         pairs_per_scene=2, seed=0, verbose=False)
+    state = init_params(torch.Generator().manual_seed(0))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    lines = chip_smoke.step_card_vs_cpu(
+        state, next(tt.batches(pool, 2, seed=0)), cuda)
+    assert len(lines) == 1 + 24

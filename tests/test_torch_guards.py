@@ -50,6 +50,7 @@ import sp_orb_slam_tpu_torch.run_vo
 import sp_orb_slam_tpu_torch.optim.sim3, sp_orb_slam_tpu_torch.models.netvlad
 import sp_orb_slam_tpu_torch.slam.loop_closing
 import sp_orb_slam_tpu_torch.eval.batch, sp_orb_slam_tpu_torch.evaluate
+import sp_orb_slam_tpu_torch.train.superpoint_train
 
 def banned(name):
     # the port's own name starts with "sp_orb_slam_tpu": match the JAX
@@ -72,7 +73,7 @@ def test_port_imports_no_jax():
                 "ops.cuda_pair1", "slam.serialize", "slam.fleet",
                 "optim.sim3", "models.netvlad", "slam.loop_closing",
                 "io.dataset", "io.native_loader", "eval.batch",
-                "evaluate"):
+                "evaluate", "train.superpoint_train"):
         assert f"sp_orb_slam_tpu_torch.{mod}" in out[1], mod
 
 
