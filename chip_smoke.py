@@ -123,7 +123,30 @@ only, for the named kernels or all seven, printing the kernel rows and no
    device time by kernel group; (e) (c)'s state through `save_npz` into a
    temporary directory, reloaded (JAX's keys and shapes), then the
    bfloat16 extractor (pair1, NMS, cov, desc_sparse) and the init matcher
-   on frames 0 and 2 of room 5: finite outputs and keypoints.
+   on frames 0 and 2 of room 5: finite outputs and keypoints;
+12. the viewer and the stream mesh: (a) phase 6's System with
+   `set_debug_dir` and a `LiveViewer` on a free port over the first 40
+   frames of room 5, a client thread GETting /, /frame.png, /map.png and
+   /state and POSTing pause (no frame may start for 1 s), step (exactly
+   one frame) and resume: gates a frame PNG of (480, 752, 3) per frame,
+   >= 2 map PNGs, > 50 status-coloured pixels, /state OK, 0 LOST, NMS /
+   cov / desc_sparse once a frame and match at least once; ms per frame of
+   `System.process` beside phase 6's over the same frames and the render
+   times (what draws with a module that does not import is left out,
+   with a line saying so: without matplotlib the debug dir, /map.png and
+   the map render, without PIL also the overlay and /frame.png); (b) `build_sharded_step` at B=8 (rooms 4-11, frame 2
+   against frame 0), bfloat16, on a 1-slot mesh and a 2-slot mesh of this
+   card against the unsharded `multi_stream_step`: features, matches,
+   inliers and Tcw (1e-4) stream by stream, pair1 / NMS / cov /
+   desc_sparse / match once a chunk, ms per step; (c) a 2-stream bfloat16
+   fleet with a 2-slot mesh of this card beside one without a mesh over
+   30 ticks of rooms 4 and 5: 0 LOST, >= 30 % of the ticks tracked and
+   ATE < 0.2 per stream in both, the extraction, a dust and a local stage
+   split over 2 slots, every split dust / local batch re-run unsplit with
+   its poses within 5e-4, launches once a slot a tick, ms per tick; the
+   two fleets' keypoints and poses compared and stated (their extractions
+   run at different batches).  One card shows the split and the gather,
+   not scaling across cards.
 
 Every path is driven with the launch counters zeroed just before it and
 read just after (phase 9: after its warmup), and fails if a kernel of that
@@ -131,14 +154,17 @@ path never launched.  The
 rendered frames of phases 6 and 7 are made before phase 2, in one process
 per CPU core.
 Prints a `kernels` JSON line (each kernel's launches on its path and, as
-`launches_heat`, in phase 10, pair1's in phase 10b), the card's name and
-power limit, and as the last line {"ok": true, "device": {...}}.  Exits
+`launches_heat`, in phase 10, pair1's in phase 10b, as `launches_viz` in
+phase 12 (a) and as `launches_mesh` in phase 12 (c)'s mesh fleet), the
+card's name and power limit, and as the last line {"ok": true, "device":
+{...}}.  Exits
 non-zero, printing no result, without a card or without the repository
 around it.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import json
@@ -2800,6 +2826,563 @@ def train_phase(state, dev, smi, frames):
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+VIZ_FRAMES = 40       # (a): the first frames of phase 6's room
+VIZ_WAIT = 60.0       # seconds any wait of leg (a) may take
+VIZ_HOLD = 1.0        # seconds paused in which no frame may start
+VIZ_KERNELS = ("nms", "cov", "desc_sparse")  # once a frame; match >= 1
+MESH_B = 8            # (b): streams of the sharded step, one room each
+MESH_STEPS = 5        # (b): timed steps a turn, two turns a variant
+MESH_TICKS = 30       # (c): ticks of rooms MESH_ROOMS (phase 7's frames);
+                      # the streams initialize by tick 14-17
+MESH_ROOMS = (4, 5)
+MESH_TRACKED = 0.3    # (c): tracked share gate of each stream
+MESH_POSE_TOL = 5e-4  # (c): |dTcw| of a split tracking batch against the
+                      # same rows unsplit (tests/test_torch_mesh.py's fleet
+                      # tolerance)
+MESH_CHECKED = ("dust", "local", "local_wide")  # (c): split stages re-run
+MESH_KERNELS = ("pair1", "nms", "cov", "desc_sparse", "match")
+
+
+def viz_missing():
+    """The drawing modules leg (a) needs that do not import here: PIL
+    (the overlay, /frame.png) and matplotlib (the map, /map.png)."""
+    missing = []
+    for mod in ("PIL", "matplotlib"):
+        try:
+            __import__(mod)
+        except ImportError:
+            missing.append(mod)
+    return missing
+
+
+def _http(url, method="GET"):
+    """(status, content type, body, ms) of one request to the viewer."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, method=method,
+                                 data=b"" if method == "POST" else None)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=VIZ_WAIT) as r:
+            out = r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        out = e.code, e.headers.get("Content-Type"), e.read()
+    return out + ((time.perf_counter() - t0) * 1e3,)
+
+
+def _wait_for(cond, what):
+    end = time.monotonic() + VIZ_WAIT
+    while not cond():
+        if time.monotonic() > end:
+            raise AssertionError(f"viewer: timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def _colored(img):
+    """Pixels whose channels part by more than 40 from their mean: the
+    status colours, never the grayscale canvas."""
+    import numpy as np
+
+    return int((np.abs(img.astype(int) - img.mean(-1, keepdims=True))
+                .max(-1) > 40).sum())
+
+
+def viz_phase(state, dev, smi, frames, slam_stats, missing=()):
+    """Phase 12 (a): phase 6's System (752x480, K=896, float32, trained
+    weights) with a LiveViewer on a free port and `set_debug_dir` over the
+    first VIZ_FRAMES frames of room 5.  A client thread GETs the endpoints
+    during the spin, POSTs pause (no frame may start for VIZ_HOLD s), step
+    (exactly one frame) and resume; every wait has a deadline.  Gates:
+    /state OK, 0 LOST, NMS / cov / desc_sparse launched once a frame and
+    match at least once, a frame PNG of (480, 752, 3) per frame, >= 2 map
+    PNGs and > 50 status-coloured pixels on the last frame.  Prints ms per
+    frame of `System.process` beside phase 6's over the same frames, the
+    debug dump's ms per frame with and without a map, and the overlay's
+    and the map render's host ms alone.  A drawing module in `missing`
+    (viz_missing) takes out what needs it: without matplotlib the debug
+    dir (which draws maps), /map.png and the map timing; without PIL also
+    the overlay, /frame.png and its gates.  The gate, the publish hook,
+    /state and the controls always run."""
+    import io
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.config import Config
+    from sp_orb_slam_tpu_torch.slam.system import System
+    from sp_orb_slam_tpu_torch.viz.live import LiveViewer
+
+    pil, mpl = "PIL" not in missing, "matplotlib" not in missing
+    dump = pil and mpl
+    cfg = Config()
+    sys_ = System(cfg, params=state, device=dev)
+    counts = dict(started=0, finished=0)
+    per_frame, dumps = [], []
+    process, write_debug = sys_.process, sys_._write_debug
+
+    def counted(raw):
+        counts["started"] += 1
+        t0 = time.perf_counter()
+        try:
+            process(raw)
+        finally:
+            per_frame.append((time.perf_counter() - t0) * 1e3)
+            counts["finished"] += 1
+
+    def timed_dump(raw, frame):
+        t0 = time.perf_counter()
+        write_debug(raw, frame)
+        dumps.append((sys_.frame_id, (time.perf_counter() - t0) * 1e3))
+
+    sys_.process, sys_._write_debug = counted, timed_dump
+    gets = ["", "state"] + ["frame.png"] * pil + ["map.png"] * mpl
+    client_log, errors = {}, []
+
+    def client(url):
+        try:
+            _wait_for(lambda: sys_.frame_id >= 10 or errors, "frame 10")
+            for path in gets:
+                client_log[path or "/"] = _http(url + path)
+            client_log["pause"] = _http(url + "control?cmd=pause", "POST")
+            while True:  # the spin parks at its gate between two frames
+                _wait_for(lambda: counts["started"] == counts["finished"],
+                          "the frame in flight")
+                n = counts["started"]
+                time.sleep(0.3)
+                if counts["started"] == counts["finished"] == n:
+                    break
+            time.sleep(VIZ_HOLD)
+            client_log["held"] = counts["started"] - n
+            client_log["step"] = _http(url + "control?cmd=step", "POST")
+            _wait_for(lambda: counts["finished"] > n, "the stepped frame")
+            time.sleep(0.5)
+            client_log["stepped"] = counts["started"] - n
+            client_log["resume"] = _http(url + "control?cmd=resume", "POST")
+        except Exception as e:  # reported by the phase's gates
+            errors.append(e)
+        finally:
+            sys_.paused = False  # never leave the spin parked
+
+    ok, extra = True, []
+    with tempfile.TemporaryDirectory() as tmp:
+        if dump:
+            sys_.set_debug_dir(tmp)
+        viewer = LiveViewer(sys_)
+        try:
+            thread = threading.Thread(target=client, args=(viewer.url,),
+                                      daemon=True)
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            thread.start()
+            try:
+                sys_.spin(frames[:VIZ_FRAMES])
+            finally:
+                thread.join(timeout=VIZ_WAIT)
+            wall = time.perf_counter() - t0
+            launches = read_launches("viewer", VIZ_KERNELS + ("match",))
+            final_state = _http(viewer.url + "state")
+            final_frame = _http(viewer.url + "frame.png") if pil else None
+        finally:
+            viewer.close()
+        if pil:
+            from PIL import Image
+
+            img = np.asarray(Image.open(io.BytesIO(final_frame[2])))
+            extra.append(f"viewer: /frame.png after the spin "
+                         f"{final_frame[0]}, {img.shape}, coloured pixels "
+                         f"{_colored(img)}, {final_frame[3]:.1f} ms")
+            ok &= (final_frame[0] == 200 and img.shape == (480, 752, 3)
+                   and _colored(img) > 50)
+            extra.append(_render_times(sys_, frames, tmp, mpl, smi))
+        if dump:
+            good, lines = _viz_artifacts(tmp, dumps, smi)
+            ok &= good
+            extra += lines
+    rep = sys_.report()
+    state_json = json.loads(final_state[2])
+    left_out = (f" (without {' and '.join(missing)}: "
+                f"{'no debug dir, ' if not dump else ''}"
+                f"{'no /map.png' if not mpl else ''}"
+                f"{', no /frame.png' if not pil else ''})"
+                if missing else " + debug dir")
+    lines = [f"viewer: {VIZ_FRAMES} frames of room 5 at {cfg.camera.width}x"
+             f"{cfg.camera.height}, K={cfg.runtime.max_keypoints}, "
+             f"{cfg.extractor.dtype}, live viewer{left_out}: wall "
+             f"{wall:.3f} s (with the {VIZ_HOLD:.0f} s pause) | {smi}",
+             f"viewer: System.process ms/frame {span_stats(per_frame)}; "
+             f"phase 6 (no viewer) over the same frames "
+             f"{span_stats(slam_stats['process'][:VIZ_FRAMES])} | {smi}",
+             "viewer: client " + ", ".join(
+                 f"{k} {v[0]} {v[1]} {len(v[2])} B {v[3]:.1f} ms"
+                 for k, v in client_log.items() if isinstance(v, tuple)),
+             f"viewer: frames started while paused {client_log.get('held')}"
+             f" in {VIZ_HOLD} s, after one step {client_log.get('stepped')}"
+             f"; /state after the spin {state_json.get('state')}; "
+             f"{json.dumps(rep, default=float)}"] + extra
+    log("\n".join(lines))
+    if errors:
+        raise AssertionError(f"viewer client failed: {errors[0]!r}")
+    codes = [client_log[k or "/"][0] for k in gets]
+    posts = [client_log[k][0] for k in ("pause", "step", "resume")]
+    if not (codes == [200] * len(gets) and posts == [200] * 3
+            and client_log["held"] == 0 and client_log["stepped"] == 1):
+        raise AssertionError("viewer: endpoints or pause / step gates "
+                             "failed")
+    if not (ok and state_json.get("state") == "OK" and rep["n_lost"] == 0
+            and len(per_frame) == VIZ_FRAMES):
+        raise AssertionError("viewer: artifact or tracking gates failed")
+    wrong = {k: launches[k] for k in VIZ_KERNELS
+             if launches[k] != VIZ_FRAMES}
+    if wrong or launches["match"] < 1:
+        raise AssertionError(f"viewer launches {launches}: want "
+                             f"{VIZ_FRAMES} of {VIZ_KERNELS}, match >= 1")
+    return launches
+
+
+def _render_times(sys_, frames, tmp, mpl, smi):
+    """The overlay (draw_frame, then its PNG write, each timed) and, with
+    matplotlib, the map render (trajectory + draw_map + PNG write) alone on
+    the last frame, host ms."""
+    from sp_orb_slam_tpu_torch.viz import draw_frame, save_png
+
+    raw, frame = frames[VIZ_FRAMES - 1], sys_.tracker.last_frame
+    t_draw, t_png, t_map = [], [], []
+    for _ in range(10):
+        t1 = time.perf_counter()
+        arr = draw_frame(frame, sys_.map,
+                         dust_pids=sys_.tracker.last_dust_pids,
+                         image=raw.image, K_intr=sys_.kernels.K_np,
+                         state="OK")
+        t2 = time.perf_counter()
+        save_png(os.path.join(tmp, "again.png"), arr)
+        t_draw.append((t2 - t1) * 1e3)
+        t_png.append((time.perf_counter() - t2) * 1e3)
+    for _ in range(3 if mpl else 0):
+        from sp_orb_slam_tpu_torch.viz import draw_map
+
+        t1 = time.perf_counter()
+        _, poses = sys_.trajectory()
+        draw_map(sys_.map, os.path.join(tmp, "again_map.png"),
+                 current_kf=sys_.tracker.ref_kf, trajectory=poses[:, :3, 3])
+        t_map.append((time.perf_counter() - t1) * 1e3)
+    return (f"viewer: overlay alone: draw_frame {span_stats(t_draw)}, its "
+            f"PNG write {span_stats(t_png)}; map render (trajectory + "
+            f"draw_map + PNG write) alone "
+            f"{span_stats(t_map) if mpl else 'not measured (no matplotlib)'}"
+            f" | {smi}")
+
+
+def _viz_artifacts(tmp, dumps, smi):
+    """(gates met, lines) of the debug dir: a frame PNG of (480, 752, 3)
+    per frame, >= 2 map PNGs, > 50 coloured pixels on the last frame, and
+    the dump's ms per frame with and without a map."""
+    import numpy as np
+    from PIL import Image
+
+    names = sorted(os.listdir(os.path.join(tmp, "frames")))
+    shapes = {np.asarray(Image.open(os.path.join(tmp, "frames", f))).shape
+              for f in names}
+    maps = sorted(os.listdir(os.path.join(tmp, "map")))
+    colored = _colored(np.asarray(Image.open(
+        os.path.join(tmp, "frames", names[-1]))))
+    with_map = [ms for fid, ms in dumps if fid % 20 == 0]
+    without = [ms for fid, ms in dumps if fid % 20]
+    lines = [f"viewer: debug dump ms/frame, frame PNG only "
+             f"{span_stats(without)}; frame + map PNG {span_stats(with_map)}"
+             f" | {smi}",
+             f"viewer: frame PNGs {len(names)} of shapes {sorted(shapes)}, "
+             f"map PNGs {len(maps)}, coloured pixels on the last frame "
+             f"{colored}"]
+    ok = (len(names) == VIZ_FRAMES and shapes == {(480, 752, 3)}
+          and len(maps) >= 2 and colored > 50)
+    return ok, lines
+
+
+def _mesh_inputs(state, dev, rooms):
+    """The sharded step's inputs: frame 2 of the MESH_B rooms of phase 7
+    against frame 0 (its features from the bf16 extractor), the previous
+    frame's points back-projected at depth 3 under the identity pose."""
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.config import Config
+    from sp_orb_slam_tpu_torch.extractor import make_extractor
+
+    cfg = fleet_config()
+    seeds = FLEET_SEEDS[:MESH_B]
+    img = lambda k: torch.from_numpy(np.stack(
+        [rooms[s][k].image.astype(np.float32) / 255.0 for s in seeds])).to(dev)
+    prev = make_extractor(cfg, state, device=dev)(img(0))
+    cam = Config().camera
+    K_intr = torch.tensor([cam.fx, cam.fy, cam.cx, cam.cy], device=dev)
+    z = 3.0
+    mp_pos = torch.stack([(prev.uv[..., 0] - K_intr[2]) / K_intr[0] * z,
+                          (prev.uv[..., 1] - K_intr[3]) / K_intr[1] * z,
+                          torch.full_like(prev.uv[..., 0], z)], -1)
+    Tcw = torch.eye(4, device=dev).expand(MESH_B, 4, 4).contiguous()
+    return (img(2), prev.desc.contiguous(), prev.uv.contiguous(),
+            prev.valid.contiguous(), Tcw, mp_pos.contiguous(),
+            prev.valid.clone(), K_intr)
+
+
+def sharded_step_phase(state, dev, smi, rooms):
+    """Phase 12 (b): `build_sharded_step` at 752x480, B=MESH_B, K=896,
+    bfloat16 with the trained weights, on a 1-slot mesh (`make_mesh(1)`)
+    and a 2-slot mesh of this card, against the unsharded
+    `multi_stream_step`: features, match indices, inlier counts and Tcw
+    (1e-4) compared stream by stream; pair1, NMS, cov, desc_sparse and
+    match launched once a chunk; ms per step (CUDA events, in turns)."""
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.config import Config
+    from sp_orb_slam_tpu_torch.models.superpoint import SuperPoint
+    from sp_orb_slam_tpu_torch.parallel.mesh import (Mesh,
+                                                     build_sharded_step,
+                                                     make_mesh,
+                                                     multi_stream_step)
+
+    cfg = Config()
+    kw = dict(num_features=cfg.tracking.num_features,
+              max_keypoints=cfg.runtime.max_keypoints,
+              compute_dtype=torch.bfloat16)
+    inputs = _mesh_inputs(state, dev, rooms)
+    model = SuperPoint({k: v.to(dev) for k, v in state.items()}).eval()
+    steps = {"unsharded": lambda: multi_stream_step(model, *inputs, **kw),
+             "1-slot mesh": build_sharded_step(make_mesh(1, dev.type), state,
+                                              **kw),
+             "2-slot mesh": build_sharded_step(Mesh([dev, dev]), state, **kw)}
+    outs, launches = {}, {}
+    for name, fn in steps.items():
+        call = fn if name == "unsharded" else (lambda f=fn: f(*inputs))
+        steps[name] = call
+        zero_launches()
+        outs[name] = call()
+        torch.cuda.synchronize()
+        launches[name] = read_launches(f"sharded step, {name}",
+                                       MESH_KERNELS)
+    times = {name: [] for name in steps}
+    order = list(steps) + list(steps)[::-1]
+    for name in order:  # in turns: each variant timed early and late
+        times[name].append(cuda_ms(steps[name], iters=MESH_STEPS))
+    base = outs["unsharded"]
+    lines = [f"sharded step: B={MESH_B} (rooms {FLEET_SEEDS[0]}-"
+             f"{FLEET_SEEDS[MESH_B - 1]}, frame 2 against frame 0) at "
+             f"{cfg.camera.width}x{cfg.camera.height}, K="
+             f"{cfg.runtime.max_keypoints}, bfloat16 | {smi}"]
+    ok = True
+    for name, out in outs.items():
+        feats, m12, n, Tcw, n_inl = out
+        same_feats = [bool(torch.equal(feats.uv[b], base[0].uv[b])
+                           and torch.equal(feats.desc[b], base[0].desc[b]))
+                      for b in range(MESH_B)]
+        m_rows = (m12 != base[1]).sum(1).tolist()
+        inl_same = torch.equal(n_inl, base[4])
+        dT = float((Tcw - base[3]).abs().max())
+        kp_diff = [int((feats.uv[b] != base[0].uv[b]).any(-1).sum())
+                   for b in range(MESH_B)]
+        lines.append(
+            f"sharded step {name}: ms/step {np.median(times[name]):.3f} "
+            f"(turns {', '.join(f'{t:.3f}' for t in times[name])}) | "
+            f"streams with bit-equal features {sum(same_feats)}/{MESH_B}, "
+            f"keypoints moved by stream {kp_diff}, match12 rows differing "
+            f"by stream {m_rows}, inlier counts equal {inl_same}, max |dTcw| "
+            f"{dT:.2e}, matches {n.tolist()}, inliers {n_inl.tolist()} | "
+            f"launches {launches[name]} | {smi}")
+        # a stream whose features are bit-equal must agree in full; a
+        # stream whose features moved (cuDNN may pick another algorithm for
+        # another batch) is stated above and held to 95 % of its keypoints
+        for b in range(MESH_B):
+            if same_feats[b]:
+                ok &= (m_rows[b] == 0 and int(n_inl[b]) == int(base[4][b])
+                       and float((Tcw[b] - base[3][b]).abs().max()) < 1e-4)
+            else:
+                ok &= kp_diff[b] <= 0.05 * int(base[0].count[b])
+        if name == "1-slot mesh":
+            ok &= all(same_feats)
+        chunks = 1 if name != "2-slot mesh" else 2
+        ok &= all(launches[name][k] == chunks for k in MESH_KERNELS)
+    log("\n".join(lines))
+    if not ok:
+        raise AssertionError("sharded step gates failed")
+    return launches["2-slot mesh"]
+
+
+def mesh_fleet_phase(state, dev, smi, rooms, gt):
+    """Phase 12 (c): `StreamFleet(cfg, 2, params, device="cuda",
+    mesh=<2 slots of this card>)` in bfloat16 (pair1), warmed up, over
+    MESH_TICKS ticks of rooms MESH_ROOMS, after the same fleet without a
+    mesh.  Every split dust / local batch of the mesh fleet is run again
+    unsplit on the same rows (outside the tick's time and launch counts),
+    and its poses are held to MESH_POSE_TOL.  The mesh fleet extracts at
+    B=1 a slot where the unmeshed one extracts at B=2, and cuDNN's bfloat16
+    convolutions round differently at the two batches, so the two fleets'
+    features and poses are compared and stated, and each fleet is held to
+    phase 7's ATE gate.  Gates: 0 LOST, a MESH_TRACKED share of the ticks
+    tracked and ATE rmse < 0.2 per stream in both; the extraction split
+    over 2 slots; a split dust stage and a split local stage; the re-runs'
+    poses; pair1 / NMS / cov / desc_sparse launched once a slot a tick
+    (once a tick without the mesh), match at least once.  Prints ms per
+    tick of both.  Returns the mesh fleet's launches."""
+    import numpy as np
+    import torch
+
+    from sp_orb_slam_tpu_torch.eval.ate import ate_sim3
+    from sp_orb_slam_tpu_torch.ops import _build
+    from sp_orb_slam_tpu_torch.parallel.mesh import Mesh
+    from sp_orb_slam_tpu_torch.slam.fleet import StreamFleet
+
+    cfg = fleet_config()
+    n = len(MESH_ROOMS)
+    lines, launches, poses, kps, ok = [], {}, {}, {}, True
+    rerun = collections.defaultdict(list)  # stage -> (max |dTcw|, differing)
+    for name, mesh in (("no mesh", None), ("2-slot mesh", Mesh([dev, dev]))):
+        t0 = time.perf_counter()
+        fleet = StreamFleet(cfg, n, params=state, device=dev, mesh=mesh)
+        fleet.warmup()
+        k = fleet.kernels
+        # every batched stage's placement in the ticks (not the warmup's)
+        placed = []
+        placement, batch = k._placement, k._batch
+        aside = [0.0]  # the tick's seconds spent on the unsplit re-runs
+
+        def spied(stage, n_rows, _placed=placed, _placement=placement):
+            parts = _placement(stage, n_rows)
+            _placed.append((stage, len(parts)))
+            return parts
+
+        def checked(fn, layout, rows, bank=False, desc_idx=2, valid_idx=3,
+                    *, stage, _k=k, _batch=batch, _placed=placed,
+                    _aside=aside):
+            outs = _batch(fn, layout, rows, bank, desc_idx, valid_idx,
+                          stage=stage)
+            where = _k.last_batch_placement[stage]
+            if stage not in MESH_CHECKED or not where["split"]:
+                return outs
+            t1 = time.perf_counter()
+            held = (len(_placed), dict(_build.LAUNCHES), _k.batch_mesh)
+            _k.batch_mesh = None
+            try:
+                ref = _batch(fn, layout, rows, bank, desc_idx, valid_idx,
+                             stage=stage)
+            finally:
+                _k.batch_mesh = held[2]
+                _k.last_batch_placement[stage] = where
+                del _placed[held[0]:]
+                _build.LAUNCHES.update(held[1])
+            dT, differing = 0.0, 0
+            for o, r in zip(outs, ref):
+                for key, v in o.items():
+                    if key.startswith("Tcw"):
+                        dT = max(dT, float(np.abs(v - r[key]).max()))
+                    elif v.dtype.kind in "biu":
+                        differing += int(np.sum(v != r[key]))
+            rerun[stage].append((dT, differing))
+            _aside[0] += time.perf_counter() - t1
+            return outs
+
+        k._placement = spied
+        if mesh is not None:
+            k._batch = checked
+        fleet.last_extract_placement = None
+        per_tick, poses[name], kps[name] = [], [], []
+        zero_launches()
+        torch.cuda.synchronize()
+        for t in range(MESH_TICKS):
+            aside[0] = 0.0
+            t1 = time.perf_counter()
+            out = fleet.tick([rooms[r][t] for r in MESH_ROOMS])
+            per_tick.append((time.perf_counter() - t1 - aside[0]) * 1e3)
+            poses[name].append([None if p is None else p.copy()
+                                for p in out])
+            f = fleet._tick_feats
+            kps[name].append((f.uv.cpu().numpy(), f.valid.cpu().numpy()))
+        torch.cuda.synchronize()
+        launches[name] = read_launches(f"mesh fleet, {name}", MESH_KERNELS)
+        by_slots = collections.Counter(placed)
+        ates = []
+        for s, room in zip(fleet.systems, MESH_ROOMS):
+            ts, traj = s.trajectory()
+            tg, pg = gt[room]
+            ates.append(ate_sim3(ts, traj[:, :3, 3], tg, pg[:, :3, 3]).rmse)
+        reps = fleet.report()
+        lines.append(f"mesh fleet {name}: {n} streams (rooms {MESH_ROOMS}) x "
+                     f"{MESH_TICKS} ticks, {cfg.extractor.dtype}: ms/tick "
+                     f"{span_stats(per_tick)} | extraction "
+                     f"{fleet.last_extract_placement} | batched calls by "
+                     f"(stage, chunks) {dict(sorted(by_slots.items()))} | "
+                     f"LOST {[r['n_lost'] for r in reps]} tracked "
+                     f"{[r['n_frames'] for r in reps]} ATE rmse "
+                     f"{[round(float(a), 4) for a in ates]} | leg "
+                     f"{time.perf_counter() - t0:.1f} s with the warmup | "
+                     f"{smi}")
+        ok &= all(r["n_lost"] == 0 and a < 0.2
+                  and r["n_frames"] >= MESH_TRACKED * MESH_TICKS
+                  for r, a in zip(reps, ates))
+        per = 2 if mesh is not None else 1
+        ok &= all(launches[name][kn] == per * MESH_TICKS
+                  for kn in MESH_KERNELS[:4]) and launches[name]["match"] >= 1
+        if mesh is not None:
+            ok &= (fleet.last_extract_placement["slots"] == 2
+                   and by_slots[("dust", 2)] > 0
+                   and by_slots[("local", 2)] > 0)
+    # the split stages against the same rows unsplit
+    for stage in MESH_CHECKED:
+        got = rerun.get(stage, [])
+        dT = max((d for d, _ in got), default=0.0)
+        lines.append(f"mesh fleet split {stage} batches re-run unsplit: "
+                     f"{len(got)}, max |dTcw| {dT:.2e} (gate "
+                     f"{MESH_POSE_TOL}), integer / bool entries differing "
+                     f"{sum(c for _, c in got)}")
+        ok &= dT <= MESH_POSE_TOL
+    ok &= bool(rerun["dust"]) and bool(rerun["local"])
+    # the two fleets' features and poses, stream by stream and tick by tick
+    # a keypoint of the mesh fleet moved: no unmeshed keypoint at its uv
+    moved = np.zeros((MESH_TICKS, n), int)
+    dT = np.zeros((MESH_TICKS, n))
+    one_sided = 0
+    for t in range(MESH_TICKS):
+        (ua, va), (ub, vb) = kps["no mesh"][t], kps["2-slot mesh"][t]
+        for i in range(n):
+            at = set(map(tuple, ua[i][va[i]].tolist()))
+            moved[t, i] = sum(p not in at
+                              for p in map(tuple, ub[i][vb[i]].tolist()))
+        for i, (a, b) in enumerate(zip(poses["no mesh"][t],
+                                       poses["2-slot mesh"][t])):
+            if (a is None) != (b is None):
+                one_sided += 1
+            elif a is not None:
+                dT[t, i] = np.abs(a - b).max()
+    over = np.nonzero((dT > MESH_POSE_TOL).any(1))[0]
+    lines.append(f"mesh fleet against no mesh: keypoints moved a tick by "
+                 f"stream max {moved.max(0).tolist()} median "
+                 f"{np.median(moved, 0).tolist()} (of "
+                 f"{cfg.runtime.max_keypoints}), ticks with every keypoint "
+                 f"in place {int((moved.sum(1) == 0).sum())}/{MESH_TICKS}; "
+                 f"max |dTcw| by stream {[f'{v:.2e}' for v in dT.max(0)]}, "
+                 f"first tick above {MESH_POSE_TOL} "
+                 f"{int(over[0]) if len(over) else None}; ticks with a pose "
+                 f"in one fleet only {one_sided}")
+    log("\n".join(lines))
+    if not ok:
+        raise AssertionError("mesh fleet gates failed (0 LOST, tracked "
+                             "share, ATE, split extraction and stages, the "
+                             "split stages against unsplit, launches)")
+    return launches["2-slot mesh"]
+
+
+def mesh_phase(state, dev, smi, rooms, gt):
+    """Phase 12 (b) and (c); returns (b)'s and (c)'s launches."""
+    return (sharded_step_phase(state, dev, smi, rooms),
+            mesh_fleet_phase(state, dev, smi, rooms, gt))
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     kernels_only = argv[:1] == ["--kernels"]
@@ -2904,6 +3487,15 @@ def main(argv) -> int:
     stamp("heat fleet")
     train_phase(state, dev, smi, rooms[5])
     stamp("training")
+    missing = viz_missing()
+    if missing:  # no drawer of our own: the CPU tests draw what is left out
+        log(f"phase 12 (a): {' and '.join(missing)} not installed: what "
+            f"draws with {'them' if len(missing) > 1 else 'it'} is left "
+            f"out; the gate, the publish hook, /state and the controls run")
+    viz = viz_phase(state, dev, smi, rooms[5], slam_stats, missing=missing)
+    stamp("viewer")
+    step_mesh, fleet_mesh = mesh_phase(state, dev, smi, rooms, gt)
+    stamp("mesh")
     # each kernel's launches on the path that runs it: the SLAM path for
     # its kernels, the bf16 frontend with conv_packing="pair1t" for pair1t,
     # desc_method="pallas" for desc_dense, the bf16 fleet for pair1
@@ -2918,11 +3510,15 @@ def main(argv) -> int:
         else:
             r["path"], r["launches"] = ("frontend_bf16_pair1t",
                                         pair1t_route["pair1t"])
-        # the launches of phase 10 (phase 10b for pair1)
+        # the launches of phase 10 (phase 10b for pair1), of phase 12's
+        # viewer leg and of its mesh fleet
         r["launches_heat"] = (heat_fleet if r["name"] == "pair1"
                               else heat)[r["name"]]
+        r["launches_viz"] = viz[r["name"]]
+        r["launches_mesh"] = fleet_mesh[r["name"]]
+    log(f"sharded step launches on the 2-slot mesh: {step_mesh}")
     keys = ("name", "route", "source", "replaces", "path", "launches",
-            "launches_heat") + ROW_KEYS[1:]
+            "launches_heat", "launches_viz", "launches_mesh") + ROW_KEYS[1:]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(f"card: {smi}")

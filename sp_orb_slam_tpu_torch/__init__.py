@@ -5,8 +5,10 @@ nothing of it and nothing of JAX.  Ported: the learned frontend
 (`extractor.make_extractor`), the init matcher
 (`ops.cuda_match.match_init_batch`), SLAM (`slam.system.System`, `run_vo`)
 with loop closing, the online mode and multi-stream serving
-(`slam.fleet.StreamFleet`), the batch evaluation (`evaluate`) and SuperPoint
-training (`train.superpoint_train`), with the seven TPU kernels as
-hand-written CUDA kernels in `csrc/` (built on first use by `ops/_build.py`).
+(`slam.fleet.StreamFleet`), the batch evaluation (`evaluate`), SuperPoint
+training (`train.superpoint_train`), the viewer (`viz`: debug dumps and the
+live HTTP viewer) and the stream mesh (`parallel.mesh`), with the seven
+TPU kernels as hand-written CUDA kernels in `csrc/` (built on first use by
+`ops/_build.py`).
 Entry points run on the card unless the caller passes `device="cpu"`.
 """

@@ -8,6 +8,7 @@
         --data-path DATA --seq MH_05_difficult --weights W.npz
     python -m sp_orb_slam_tpu_torch.run_vo ... --save-map map.npz
     python -m sp_orb_slam_tpu_torch.run_vo ... --load-map map.npz --localization
+    python -m sp_orb_slam_tpu_torch.run_vo ... --debug-dir out/viz --live-port 0
 
 Writes traj.txt / kf.txt (TUM format) under --output (default: the
 config's output_path where a config sets one, else out/run_vo/ beside the
@@ -17,7 +18,10 @@ timer table on stderr.  The dataset (euroc, tsukuba, an export tree,
 synthetic or rendered), `--data-path` and `--seq` override the config's;
 the online mode (`online: true`) comes from the YAML config, as in the
 JAX package's command line.  Runs on the card unless --device cpu is
-given.
+given.  `--debug-dir` writes each frame's overlay PNG and periodic map
+snapshots (viz/); `--live-port` serves the live viewer (viz/live.py: the
+frame overlay, the map, the state and the pause / step / reset /
+localization controls) for the run and prints its URL on stderr.
 """
 
 from __future__ import annotations
@@ -65,6 +69,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--verbose", action="store_true")
+    ap.add_argument("--debug-dir", default=None,
+                    help="write per-frame overlay PNGs + map snapshots "
+                         "(the offline viewer equivalent)")
+    ap.add_argument("--live-port", type=int, default=None,
+                    help="serve the live viewer (frame overlay, map, "
+                         "pause/step/reset/localization controls) on this "
+                         "HTTP port; 0 picks a free port")
     ap.add_argument("--save-map", default=None, metavar="PATH",
                     help="persist the built map (slam/serialize.py) after "
                          "the run")
@@ -113,7 +124,19 @@ def main(argv=None) -> int:
         system.load_map(args.load_map)
     if args.localization:
         system.activate_localization_mode()
-    system.spin(dataset, max_frames=args.max_frames)
+    if args.debug_dir:
+        system.set_debug_dir(args.debug_dir)
+    viewer = None
+    if args.live_port is not None:
+        from sp_orb_slam_tpu_torch.viz.live import LiveViewer
+
+        viewer = LiveViewer(system, port=args.live_port)
+        print(f"live viewer: {viewer.url}", file=sys.stderr)
+    try:
+        system.spin(dataset, max_frames=args.max_frames)
+    finally:
+        if viewer is not None:
+            viewer.close()
     if args.save_map:
         system.save_map(args.save_map)
 

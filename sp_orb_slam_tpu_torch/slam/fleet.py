@@ -23,8 +23,15 @@ mapper spins after its stream's frame; in the online mode (`cfg.online`)
 each stream's mapping (and loop closing) runs on its own threads, started
 by the stream's first tick and joined by `shutdown`, and the prepasses
 hold each stream's map lock while they read its map.  `load_map` is the
-build-once, localize-many server.  The JAX fleet's multi-chip stream mesh
-is not ported: there is one card.
+build-once, localize-many server.
+
+With a stream mesh (`mesh=`, parallel/mesh.py) the tick's padded image
+batch is cut into one contiguous chunk per mesh slot, each extracted on its
+slot's device by that device's extractor, and the gathered features go on
+on the fleet's device; the batched tracking stages and the mappers'
+batches split over the same slots (TrackingKernels.batch_mesh), the JAX
+fleet's `batch_sharding`.  The maps' descriptor banks stay on the fleet's
+device and are copied to a slot's device where it differs.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 
 from sp_orb_slam_tpu_torch.config import Config
 from sp_orb_slam_tpu_torch.io.dataset import RawFrame
+from sp_orb_slam_tpu_torch.parallel.mesh import gather
 from sp_orb_slam_tpu_torch.slam import tracking as tr
 from sp_orb_slam_tpu_torch.slam.frame import frame_from_features
 from sp_orb_slam_tpu_torch.slam.kernels import (BankRows, PreStacked,
@@ -55,24 +63,32 @@ class StreamFleet:
                  params, device: str | torch.device = "cuda", mesh=None):
         """`params`: the frontend's state dict (None for injected-feature
         streams); every stage runs on `device`, the card unless the caller
-        passes "cpu" (without a card this raises)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharding the fleet over a device mesh is not ported: the "
-                "port batches streams on one card")
+        passes "cpu" (without a card this raises).  `mesh`: a stream mesh
+        (parallel/mesh.Mesh) whose slot count divides the stream count; the
+        extraction and the batched stages split over its slots."""
         dev = torch.device(device)
         self.cfg = cfg
         self.device = dev
         self.n = n_streams if n_streams is not None else cfg.runtime.streams
+        if mesh is not None and self.n % mesh.size:
+            raise ValueError(f"{self.n} streams do not split over the "
+                             f"mesh's {mesh.size} slots")
+        self.mesh = mesh
         self.kernels = TrackingKernels(cfg, device=dev)
+        self.kernels.batch_mesh = mesh
         self.systems = [System(cfg, kernels=self.kernels, device=dev)
                         for _ in range(self.n)]
-        self._extract = None
+        # (preprocess, extract) of each extraction device: the fleet's
+        # device, or each distinct mesh slot's (none for injected features)
+        self._extractors: dict = {}
         if params is not None:
             from sp_orb_slam_tpu_torch.extractor import make_extractor
 
-            self._extract = make_extractor(cfg, params, device=dev)
-        self._preprocess = build_preprocess(cfg, dev)
+            self._extractors = {
+                d: (build_preprocess(cfg, d),
+                    make_extractor(cfg, params, device=d))
+                for d in (mesh.distinct() if mesh is not None else [dev])}
+        self.last_extract_placement = None  # how the last extraction ran
         self.n_batched_dust = 0    # stream-frames served by the batched stages
         self.n_batched_local = 0
         self.n_batched_motion = 0  # dust-fail fallbacks served batched
@@ -181,17 +197,26 @@ class StreamFleet:
 
     def _extract_batch(self, images: List[np.ndarray]):
         """One extraction over the tick's images, padded to the fleet width
-        by repeating row 0 (the batch is the same every tick)."""
+        by repeating row 0 (the batch is the same every tick); with a mesh,
+        one per slot over its contiguous chunk, gathered on the fleet's
+        device (a lone chunk is returned as it is)."""
         Hc, Wc = self.cfg.camera.height, self.cfg.camera.width
         imgs = np.stack([im.astype(np.float32)[:Hc, :Wc] / 255.0
                          for im in images])
         if len(imgs) < self.n:
             imgs = np.concatenate([imgs, np.repeat(imgs[:1],
                                                    self.n - len(imgs), 0)])
-        dev = torch.from_numpy(imgs).to(self.device)
-        if self._preprocess is not None:
-            dev = self._preprocess(dev)
-        return self._extract(dev)
+        parts = (self.mesh.split(len(imgs)) if self.mesh is not None
+                 else [(self.device, 0, len(imgs))])
+        feats = []
+        for d, lo, hi in parts:  # every chunk enqueued before the gather
+            pre, extract = self._extractors[d]
+            x = torch.from_numpy(imgs[lo:hi]).to(d)
+            feats.append(extract(pre(x) if pre is not None else x))
+        self.last_extract_placement = dict(
+            n_rows=len(imgs), split=self.mesh is not None, slots=len(parts),
+            devices=[str(d) for d, _, _ in parts])
+        return gather(feats, self.device)
 
     def _fine_retry_rounds(self, frames: dict) -> None:
         """Drive every stream's fine retry machine (tracking._fine_begin /
@@ -354,7 +379,8 @@ class StreamFleet:
         fleet width on dummy inputs, so kernel builds, library loads and
         first-use allocations leave the timed ticks."""
         cfg = self.cfg
-        if self._extract is not None:  # injected-feature fleets never extract
+        # injected-feature fleets never extract
+        if self._extractors:
             H, W = cfg.camera.height, cfg.camera.width
             feats = self._extract_batch([np.zeros((H, W), np.uint8)])
             self.kernels.fetch_features_host_batch(feats, self.n)

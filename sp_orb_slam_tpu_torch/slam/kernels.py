@@ -38,6 +38,12 @@ same bodies under `torch.func.vmap` (the counterpart of `jax.vmap`) over a
 list of per-row argument tuples, with ONE packed upload of every row's host
 arguments and ONE packed readback (`upload_rows`, `PreStacked`,
 `BankRows`).  Every batched stage is vmapped; none loops over its rows.
+With `TrackingKernels.batch_mesh` set (parallel/mesh.py; the fleet sets it
+when it serves over a stream mesh), a batch whose row count the mesh's
+slot count divides is split into one contiguous chunk per slot, each with
+its own upload, vmap and readback on its slot's device (the counterpart of
+the JAX package's `batch_sharding`); `last_batch_placement` records how
+each batched stage last ran.
 """
 
 from __future__ import annotations
@@ -198,6 +204,17 @@ def upload_rows(rows, device: torch.device) -> list:
             out[i] = _as_kind(buf[:, off:off + size].reshape(a.shape), a)
             off += size
     return out
+
+
+def _row_chunk(rows, lo: int, hi: int) -> list:
+    """Rows lo..hi-1 of a batch, each PreStacked argument cut to the same
+    rows (one new PreStacked per position, shared by the chunk's rows)."""
+    if lo == 0 and hi == len(rows):
+        return rows
+    cut = {i: PreStacked(a.array[lo:hi]) for i, a in enumerate(rows[0])
+           if isinstance(a, PreStacked)}
+    return [tuple(cut.get(i, a) for i, a in enumerate(r))
+            for r in rows[lo:hi]]
 
 
 def _scatter_flags(n: int, idx: torch.Tensor) -> torch.Tensor:
@@ -560,6 +577,12 @@ class TrackingKernels:
                                "to run the tracking stages on the CPU")
         self.cfg = cfg
         self.device = dev
+        # the stream mesh (parallel/mesh.Mesh) the batched stages split
+        # over; None runs every batch on `device`
+        self.batch_mesh = None
+        # batched stage name -> how its last batch ran: n_rows, split,
+        # slots and the devices of the chunks
+        self.last_batch_placement: dict = {}
         K = cfg.runtime.max_keypoints
         P = cfg.runtime.dust_points_cap
         L = cfg.runtime.local_points_cap
@@ -568,6 +591,7 @@ class TrackingKernels:
         self.K_intr = torch.from_numpy(self.K_np).to(dev)
         self.bounds = torch.tensor(
             [0.0, cam.width - 1.0, 0.0, cam.height - 1.0], device=dev)
+        self._consts_on = {self.K_intr.device: (self.K_intr, self.bounds)}
 
         self.dust_layout = Layout([
             ("Tcw", (4, 4), float), ("Tcw_coarse", (4, 4), float),
@@ -666,20 +690,49 @@ class TrackingKernels:
         bank, rows, valid = self._up((bank, rows, valid))
         return torch.where(valid[:, None], bank[rows], 0.0)
 
+    def _consts(self, dev: torch.device):
+        """(K_intr, bounds) on `dev`: a mesh slot's chunk runs there."""
+        c = self._consts_on.get(dev)
+        if c is None:
+            c = self._consts_on[dev] = (self.K_intr.to(dev),
+                                        self.bounds.to(dev))
+        return c
+
+    def _placement(self, stage: str, n: int) -> list:
+        """(device, lo, hi) chunks of an n-row batch: one per mesh slot when
+        `batch_mesh` is set and its slot count divides n, else the whole
+        batch on the kernels' device; recorded in last_batch_placement."""
+        mesh = self.batch_mesh
+        split = mesh is not None and n % mesh.size == 0
+        parts = mesh.split(n) if split else [(self.K_intr.device, 0, n)]
+        self.last_batch_placement[stage] = dict(
+            n_rows=n, split=split, slots=len(parts),
+            devices=[str(d) for d, _, _ in parts])
+        return parts
+
     def _batch(self, fn, layout: Layout, rows, bank: bool = False,
-               desc_idx: int = 2, valid_idx: int = 3) -> List[dict]:
+               desc_idx: int = 2, valid_idx: int = 3, *,
+               stage: str) -> List[dict]:
         """`fn` (a stage of device tensors returning a dict) over the
         per-row argument tuples `rows` under torch.func.vmap: ONE packed
-        upload of every row's host arguments, ONE packed readback.  With
-        `bank` the descriptor slot holds bank-row indices and each row
-        ends with the stacked descriptor banks (BankRows)."""
+        upload of every row's host arguments, ONE packed readback (one of
+        each per mesh slot when the batch is split).  With `bank` the
+        descriptor slot holds bank-row indices and each row ends with the
+        stacked descriptor banks (BankRows).  A split chunk's arguments
+        move to its slot's device, the maps' descriptor banks included:
+        they live on the kernels' device and are copied each batch to a
+        slot on another device (nothing moves on one card; per-slot bank
+        mirrors are what a multi-card deployment would add first)."""
         if bank:
             fn = _bank_variant(fn, desc_idx, valid_idx)
-        args = upload_rows(rows, self.device)
-        flat = torch.func.vmap(lambda *a: layout.pack(**fn(*a)))(*args)
-        return [layout.unpack(r) for r in flat.cpu().numpy()]
+        run = torch.func.vmap(lambda *a: layout.pack(**fn(*a)))
+        # every chunk is enqueued before any readback, so slots on
+        # different cards run at once
+        flats = [run(*upload_rows(_row_chunk(rows, lo, hi), d))
+                 for d, lo, hi in self._placement(stage, len(rows))]
+        return [layout.unpack(r) for f in flats for r in f.cpu().numpy()]
 
-    def _batch_chunked(self, fn, layout: Layout, rows,
+    def _batch_chunked(self, fn, layout: Layout, rows, stage: str,
                        max_width: int = 8) -> List[dict]:
         """The mapper's batches: chunks of at most `max_width` rows, one
         upload and one readback each (a single row runs unbatched), so the
@@ -691,43 +744,47 @@ class TrackingKernels:
                 outs.append(self._read(layout,
                                        layout.pack(**fn(*self._up(chunk[0])))))
             else:
-                outs.extend(self._batch(fn, layout, chunk))
+                outs.extend(self._batch(fn, layout, chunk, stage=stage))
         return outs
 
     # ---- stage functions of device tensors ---------------------------------
+    # (each takes the constants on its arguments' device: a mesh slot's)
 
     def _dust_fn(self, *a):
-        return dust_track_body(*a, self.K_intr, **self._dust_kw)
+        K_intr, _ = self._consts(a[0].device)
+        return dust_track_body(*a, K_intr, **self._dust_kw)
 
     def _heat_fn(self, *a):
-        return heat_track_body(*a, self.K_intr, **self._heat_kw)
+        K_intr, _ = self._consts(a[0].device)
+        return heat_track_body(*a, K_intr, **self._heat_kw)
 
     def _motion_fn(self, *a):
         mo = self.cfg.tracking.motion
-        return motion_track_body(*a, self.K_intr, self.bounds,
+        return motion_track_body(*a, *self._consts(a[0].device),
                                  radius=float(mo.th_window_size),
                                  n_retry_th=mo.th_nmatch_proj)
 
     def _reloc_fn(self, *a):
         return reloc_track_body(
-            *a, self.K_intr, self.bounds,
+            *a, *self._consts(a[0].device),
             radius2=float(self.cfg.tracking.map.th_window_reloc))
 
     def _local_fn(self, wide: bool):
         m = self.cfg.tracking.map
         window_th = float(m.th_window_retry if wide else m.th_window_size)
         return lambda *a: local_map_track_body(
-            *a, self.K_intr, self.bounds, window_th=window_th,
+            *a, *self._consts(a[0].device), window_th=window_th,
             **self._local_kw)
 
     def _tri_fn(self, *a):
         mp = self.cfg.mapping
-        return triangulate_body(*a, self.K_intr, nn_ratio=0.7,
+        K_intr, _ = self._consts(a[0].device)
+        return triangulate_body(*a, K_intr, nn_ratio=0.7,
                                 method=mp.matching_method,
                                 seed_px_noise=mp.depth_filter.seed_px_noise)
 
     def _fuse_fn(self, *a):
-        return fuse_body(*a, self.K_intr, self.bounds, radius=3.0)
+        return fuse_body(*a, *self._consts(a[0].device), radius=3.0)
 
     # ---- tracking ----------------------------------------------------------
 
@@ -750,7 +807,8 @@ class TrackingKernels:
     def dust_track_batch(self, rows, bank: bool = False) -> List[dict]:
         """The dust stage over per-stream argument tuples (the fleet's
         prepass): one upload, one readback for the whole fleet."""
-        return self._batch(self._dust_fn, self.dust_layout, rows, bank)
+        return self._batch(self._dust_fn, self.dust_layout, rows, bank,
+                           stage="dust")
 
     @_stage
     def fused_track(self, *args, wide: bool = False):
@@ -779,7 +837,8 @@ class TrackingKernels:
     def motion_track_batch(self, rows, bank: bool = False) -> List[dict]:
         """The motion-model fallback of every stream whose dust stage
         failed this tick (the fleet's coarse_phase2)."""
-        return self._batch(self._motion_fn, self.track_layout, rows, bank)
+        return self._batch(self._motion_fn, self.track_layout, rows, bank,
+                           stage="motion")
 
     @_stage
     def ref_track(self, *args):
@@ -794,7 +853,8 @@ class TrackingKernels:
     @_stage
     def reloc_track_batch(self, rows, bank: bool = False) -> List[dict]:
         """The multi-start rescue of the fleet's fine retry rounds."""
-        return self._batch(self._reloc_fn, self.track_layout, rows, bank)
+        return self._batch(self._reloc_fn, self.track_layout, rows, bank,
+                           stage="reloc")
 
     @_stage
     def local_map_track(self, *args):
@@ -813,7 +873,8 @@ class TrackingKernels:
         """The fine stage over per-stream argument tuples (the fleet's
         local prepass and its wide retries)."""
         return self._batch(self._local_fn(wide), self.local_layout, rows,
-                           bank, desc_idx=2, valid_idx=4)
+                           bank, desc_idx=2, valid_idx=4,
+                           stage="local_wide" if wide else "local")
 
     @_stage
     def init_two_view(self, kp1_desc, kp1_uv, kp1_valid, prev_uv, kp2_desc,
@@ -831,7 +892,8 @@ class TrackingKernels:
         readback per chunk of 8 rows."""
         with self._tri_lock:
             self.tri_rows[self.cfg.mapping.matching_method] += len(rows)
-        return self._batch_chunked(self._tri_fn, self.tri_layout, rows)
+        return self._batch_chunked(self._tri_fn, self.tri_layout, rows,
+                                   "tri")
 
     @_stage
     def fuse(self, *args):
@@ -842,7 +904,8 @@ class TrackingKernels:
     def fuse_batch(self, rows):
         """Every target-KF row's fuse candidates, one packed upload and
         readback per chunk of 8 rows."""
-        return self._batch_chunked(self._fuse_fn, self.fuse_layout, rows)
+        return self._batch_chunked(self._fuse_fn, self.fuse_layout, rows,
+                                   "fuse")
 
     # ---- warmup ------------------------------------------------------------
 

@@ -13,7 +13,9 @@ online mode (`cfg.online`) runs them on their own threads beside tracking
 save/load (slam/serialize.py), localization mode and loop closing
 (slam/loop_closing.py, with NetVLAD place recognition computed on the
 device at keyframe promotion) are here; N systems can share one
-TrackingKernels (slam/fleet.py).
+TrackingKernels (slam/fleet.py).  The viewer menu's pause / step gate,
+the debug dumps (`set_debug_dir`: viz/) and the live viewer's publish hook
+(viz/live.py) are the reference's Pangolin viewer (src/viz/viewer.cpp).
 """
 
 from __future__ import annotations
@@ -132,11 +134,16 @@ class System:
             if cfg.loop.global_desc_source != "dataset":
                 self.map.global_desc_fn = self._make_global_desc_fn()
         self.frame_id = 0
-        # mode toggles (the reference's global::b_* flags, consumed by
-        # System::spin/run, system.cpp:141-233), applied before a frame
+        # interactive gating and mode toggles (the reference's global::b_*
+        # atomics written by the viewer menu, viz/viewer.cpp:56-126, and
+        # consumed by System::spin/run, system.cpp:141-233)
+        self.paused = False
+        self.step_once = False           # process one frame while paused
         self._local_on = False           # pending ActivateLocalizationMode
         self._local_off = False          # pending DeactivateLocalizationMode
         self._system_reset = False       # pending resetSystem
+        self.debug_dir: Optional[str] = None
+        self.viewer = None               # live HTTP viewer (viz/live.py)
         self._extract = None
         self._preprocess = None
         self._prefetched = None          # (raw, features) in flight
@@ -255,16 +262,22 @@ class System:
     def _post_track(self, frame: FrameData,
                     raw: Optional[RawFrame] = None) -> None:
         """Everything after tracking: the next frame's extraction prefetch,
-        reset handling, the offline mapping and loop spins, frame
-        counting."""
-        # enqueue the NEXT frame's extraction before this frame's mapping
-        # spin so the card runs it while the host is busy (extraction is a
-        # pure function of the image: the result is the same either way)
+        the debug dumps and the viewer's publish, reset handling, the
+        offline mapping and loop spins, frame counting."""
+        # enqueue the NEXT frame's extraction before this frame's host work
+        # (the debug PNGs, the mapping spin) so the card runs it while the
+        # host is busy (extraction is a pure function of the image: the
+        # result is the same either way)
         nxt = self._next_raw
         if (nxt is not None and self.cfg.runtime.prefetch_extract
                 and nxt.injected is None and self._extract is not None
                 and self._prefetched is None):
             self._prefetched = (nxt, self._dispatch_extract(nxt))
+        if self.debug_dir is not None and raw is not None:
+            self._write_debug(raw, frame)
+        if self.viewer is not None:
+            self.viewer.publish(raw, frame, self._state_name(),
+                                dust_pids=self.tracker.last_dust_pids)
         if self.tracker.request_reset:
             self.reset()
             return
@@ -275,6 +288,44 @@ class System:
                 with self.timer.span("loop"):
                     self.looper.spin_once()
         self.frame_id += 1
+
+    # -------------------------------------------------------- observability
+
+    def _state_name(self) -> str:
+        from sp_orb_slam_tpu_torch.slam import tracking as tr
+
+        return {tr.OK: "OK", tr.LOST: "LOST"}.get(self.tracker.state, "INIT")
+
+    def set_debug_dir(self, path: Optional[str]) -> None:
+        """Enable (a path) or disable (None) the per-frame overlay PNGs and
+        the periodic map snapshots under `path`/frames and `path`/map (the
+        offline equivalent of the reference's Pangolin viewer, viz/*)."""
+        self.debug_dir = path
+        if path:
+            os.makedirs(os.path.join(path, "frames"), exist_ok=True)
+            os.makedirs(os.path.join(path, "map"), exist_ok=True)
+
+    def _write_debug(self, raw: RawFrame, frame: FrameData) -> None:
+        """The frame's overlay PNG, and a map PNG every 20th frame and on
+        LOST, drawn under the map lock (online, the mapper writes the map
+        beside this)."""
+        from sp_orb_slam_tpu_torch.viz import draw_frame, draw_map, save_png
+
+        state = self._state_name()
+        img = draw_frame(frame, self.map,
+                         dust_pids=self.tracker.last_dust_pids,
+                         image=raw.image, K_intr=self.kernels.K_np,
+                         state=state)
+        save_png(os.path.join(self.debug_dir, "frames",
+                              f"{self.frame_id:06d}.png"), img)
+        if self.frame_id % 20 == 0 or state == "LOST":
+            with self.map.update_lock:
+                _, poses = self.trajectory()
+                traj = poses[:, :3, 3] if len(poses) else None
+                draw_map(self.map,
+                         os.path.join(self.debug_dir, "map",
+                                      f"{self.frame_id:06d}.png"),
+                         current_kf=self.tracker.ref_kf, trajectory=traj)
 
     # ------------------------------------------------------- mode toggles
 
@@ -395,6 +446,11 @@ class System:
                 if max_frames is not None and i + 1 >= max_frames:
                     nxt = None
                 self._next_raw = nxt
+                # the viewer menu's pause / step gate (the reference spin's
+                # b_pause / b_step check, system.cpp:146-158)
+                while self.paused and not self.step_once:
+                    time.sleep(1e-2)
+                self.step_once = False
                 self._apply_pending_toggles()
                 self.process(raw)
                 raw = nxt

@@ -325,16 +325,26 @@ def test_idle_rows_repeat_row_0_contiguously():
     """The tick's image batch keeps the fleet width: idle rows repeat row 0
     and the batch is one contiguous tensor (the kernels take no other)."""
     fleet = StreamFleet(_cfg(), 3, params=None, device="cpu")
-    fleet._extract = lambda images: images
+    fleet._extractors = {fleet.device: (None, lambda images: images)}
     rng = np.random.default_rng(0)
     imgs = [rng.integers(0, 256, (240, 320), np.uint8) for _ in range(2)]
     batch = fleet._extract_batch(imgs)
     assert batch.shape == (3, 240, 320) and batch.is_contiguous()
     assert torch.equal(batch[2], batch[0])
+    assert fleet.last_extract_placement == dict(
+        n_rows=3, split=False, slots=1, devices=["cpu"])
     np.testing.assert_array_equal(batch[1].numpy(),
                                   imgs[1].astype(np.float32) / 255.0)
 
 
 def test_fleet_needs_one_card_and_no_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        StreamFleet(_cfg(), 2, params=None, device="cpu", mesh=object())
+    """A mesh slot on the card extracts there or raises: without a card the
+    fleet never falls back to the CPU for it (the mesh itself is
+    tests/test_torch_mesh.py)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the no-card path")
+    from sp_orb_slam_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamFleet(_cfg(), 2, params={}, device="cpu",
+                    mesh=Mesh(["cuda:0", "cuda:0"]))

@@ -51,6 +51,9 @@ import sp_orb_slam_tpu_torch.optim.sim3, sp_orb_slam_tpu_torch.models.netvlad
 import sp_orb_slam_tpu_torch.slam.loop_closing
 import sp_orb_slam_tpu_torch.eval.batch, sp_orb_slam_tpu_torch.evaluate
 import sp_orb_slam_tpu_torch.train.superpoint_train
+import sp_orb_slam_tpu_torch.viz, sp_orb_slam_tpu_torch.viz.frame_drawer
+import sp_orb_slam_tpu_torch.viz.map_drawer, sp_orb_slam_tpu_torch.viz.live
+import sp_orb_slam_tpu_torch.parallel, sp_orb_slam_tpu_torch.parallel.mesh
 
 def banned(name):
     # the port's own name starts with "sp_orb_slam_tpu": match the JAX
@@ -73,7 +76,8 @@ def test_port_imports_no_jax():
                 "ops.cuda_pair1", "slam.serialize", "slam.fleet",
                 "optim.sim3", "models.netvlad", "slam.loop_closing",
                 "io.dataset", "io.native_loader", "eval.batch",
-                "evaluate", "train.superpoint_train"):
+                "evaluate", "train.superpoint_train", "viz.frame_drawer",
+                "viz.map_drawer", "viz.live", "parallel.mesh"):
         assert f"sp_orb_slam_tpu_torch.{mod}" in out[1], mod
 
 
@@ -117,6 +121,29 @@ def test_slam_entry_points_default_to_the_card(entry):
             "evaluate": lambda: evaluate.main(["--runs", "1", "--seqs", "1",
                                                "--max-frames", "2"])}
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        call[entry]()
+
+
+@pytest.mark.parametrize("entry", ["make_mesh", "sharded_step",
+                                   "mesh_fleet", "viz_system"])
+def test_mesh_and_viewer_entry_points_default_to_the_card(entry):
+    """make_mesh and build_sharded_step (whose default mesh is every card),
+    StreamFleet with a mesh, and the System the viewer drives run on the
+    card unless told otherwise, and raise without one: a mesh never falls
+    back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the no-card path")
+    from sp_orb_slam_tpu_torch.parallel import mesh
+    from sp_orb_slam_tpu_torch.slam.fleet import StreamFleet
+    from sp_orb_slam_tpu_torch.slam.system import System
+
+    call = {"make_mesh": lambda: mesh.make_mesh(2),
+            "sharded_step": lambda: mesh.build_sharded_step(
+                None, {}, num_features=100, max_keypoints=128),
+            "mesh_fleet": lambda: StreamFleet(
+                Config(), 2, params=None, mesh=mesh.make_mesh(2, "cpu")),
+            "viz_system": lambda: System(Config()).set_debug_dir(None)}
+    with pytest.raises((RuntimeError, ValueError), match="CUDA device"):
         call[entry]()
 
 
