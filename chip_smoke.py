@@ -15,11 +15,13 @@ only, for the named kernels or all seven, printing the kernel rows and no
 2. kernels: each of the seven kernels against its plain PyTorch version
    on the card at the step's shapes (B=32, 752x480, K=896) with seeded
    inputs (pair1 also at the fleet's B=8, with its persistent grid
-   checked; match also at B=1), then CUDA-event times of the kernel over
-   back-to-back calls, its plain version and, where one PyTorch call
-   computes the same function, that call; the kernel's device time alone
-   (torch.profiler's device events) and its host µs a call (each call
-   waited for); each kernel's times and bound again at the batch of the
+   checked; match also at B=1), then CUDA-event times of the kernel (its
+   own pair of events around each call), its plain version and, where one
+   PyTorch call computes the same function, that call; the kernel's device
+   time alone (torch.profiler's device events) and its host µs a call
+   (each call waited for); every one of these with L2 flushed before each
+   call (128 MB written outside the timed window), and no time may read
+   under its bound; each kernel's times and bound again at the batch of the
    path that launches it (pair1 B=8, NMS / cov / desc_sparse / match B=1,
    pair1t and desc_dense B=2); the two first-conv-pair designs, pair1 and
    pair1t, against each other at B=32, 8 and 1 (CUDA events) and, in
@@ -55,12 +57,15 @@ only, for the named kernels or all seven, printing the kernel rows and no
    through pair1) as frames/s over the wall time of 50 steps;
 5. profile: the same step under torch.profiler, with the device's idle
    share and device time per step by layer and by kernel;
-6. SLAM: `System(cfg, params, device="cuda").spin(...)` over the 220 frames
-   of the held-out rendered room at the default configuration (752x480,
-   K=896, float32): gates on LOST frames, the tracked share and the Sim3
-   ATE; ms per frame of `System.process` and of each `Timer` span over an
-   unprofiled spin of the first 219 frames; the device's idle share over
-   the last frame, spun under torch.profiler;
+6. SLAM: `System(cfg, params, device="cuda").spin(...)` over the first 120
+   of the 220 frames of the held-out rendered room (cut from all 220 for
+   the time limit) at the default configuration (752x480, K=896,
+   float32): gates on LOST frames, the tracked share and the Sim3 ATE; ms
+   per frame of `System.process` and of each `Timer` span over an
+   unprofiled spin of the first 119 frames; the device's idle share over
+   the last frame, spun under torch.profiler, and there the device time of
+   NMS, cov and desc_sparse as the path runs them (phase 2 times them
+   from a cold L2);
 7. the fleet: `StreamFleet(cfg, 8, params, device="cuda")` in bfloat16
    (conv_packing="auto": the pair1 kernel) over 8 held-out rendered rooms
    (texture seeds 4-11, 80 frames each, the last stream ending after 72):
@@ -69,21 +74,21 @@ only, for the named kernels or all seven, printing the kernel rows and no
    never, match at least once per stream); ms per tick and the spans over
    the unprofiled ticks, the idle share over the last tick profiled
    apart; then the localization leg: stream 0's map saved, a new 8-stream
-   fleet loads it in localization mode and runs 20 ticks of seed 4's
+   fleet loads it in localization mode and runs 10 ticks of seed 4's
    frames, gated on relocalization, the share of ticks with a pose and the
    frozen map, with the spans of its slowest tick beside its median's;
 8. SLAM with loop closing: `System(cfg, params, device="cuda")` with
    `use_loop` and the fitted NetVLAD checkpoint (weights/vlad_rendered.npz)
-   over phase 6's 220 frames (on which the JAX package closes the room's
+   over room 5's 220 frames (on which the JAX package closes the room's
    loop at this configuration): gates a loop closed, 0 LOST, >= 80 %
    tracked, ATE < 0.2, NMS / cov / desc_sparse launched once a frame and
    match at least once; ms per frame of `System.process` and the spans,
    the `loop` span of each frame that runs a Sim3 attempt or a loop
    event, split by the loop closer's stages, the loops' keyframe ids, and
-   the ATE beside phase 6's (loop closing off);
+   the ATE beside phase 6's (loop closing off, its 120 frames);
 9. online SLAM with loop closing: phase 8's System with `online=True`,
    mapping, loop closing and the post-loop global BA on their own threads
-   beside tracking, `warmup()` timed, then `spin` over phase 6's 220
+   beside tracking, `warmup()` timed, then `spin` over room 5's 220
    frames from memory (it ends with `shutdown`: drained, joined): ms per
    frame of `System.process` (tracking alone) and of the wall, the
    mapping thread's ms per keyframe and its BA solves, the loops, the GBA
@@ -97,7 +102,7 @@ only, for the named kernels or all seven, printing the kernel rows and no
    online map, the caller taking the map lock while it solves);
 10. the variants off the defaults: phase 6's System with the heat coarse
    tracker and the epipolar-walk triangulation (coarse_method="heat",
-   matching_method=2) over the first 120 of phase 6's frames: gates 0
+   matching_method=2) over the first 40 of phase 6's frames: gates 0
    LOST and ATE < 0.2, nms / cov / desc_sparse once a frame and match at
    least once, the heat stage called and no dust stage (`spy_stages`),
    method-2 triangulation rows dispatched and map points committed from
@@ -146,7 +151,23 @@ only, for the named kernels or all seven, printing the kernel rows and no
    its poses within 5e-4, launches once a slot a tick, ms per tick; the
    two fleets' keypoints and poses compared and stated (their extractions
    run at different batches).  One card shows the split and the gather,
-   not scaling across cards.
+   not scaling across cards;
+13. the tools (sp_orb_slam_tpu_torch/scripts/, through their functions):
+   (a) validate_weights on the committed checkpoint at 752x480 (phase 3's
+   keypoint, match and precision gates); (b) vlad_rendered_stats; (c) the
+   default fit_vlad_centroids run into a temporary directory (the file
+   loads through load_params, the selected revisit - distinct margin
+   above the random codebook's and its distinct median under the 0.2
+   candidate floor, the random codebook's over it; the committed
+   weights/vlad_rendered.npz scored on the same frames beside it); (d)
+   replay_degenerate, seed 1, depth filter off and on, 80 frames
+   (tests/test_depth_filter.py's gates); (e) accuracy_sweep, seeds 1-3 x
+   50 frames (0 LOST, no failed seed, each ATE < 0.1); (d)'s two runs and
+   (e)'s three seeds in five processes of their own beside (a)-(c); NMS /
+   cov /
+   desc_sparse launched in (a)-(c), match in (a), (d) and (e); every
+   kernel output of (a)-(c) and (e), at each input shape the tools give
+   the kernel, held against its plain version on the same inputs.
 
 Every path is driven with the launch counters zeroed just before it and
 read just after (phase 9: after its warmup), and fails if a kernel of that
@@ -155,7 +176,9 @@ rendered frames of phases 6 and 7 are made before phase 2, in one process
 per CPU core.
 Prints a `kernels` JSON line (each kernel's launches on its path and, as
 `launches_heat`, in phase 10, pair1's in phase 10b, as `launches_viz` in
-phase 12 (a) and as `launches_mesh` in phase 12 (c)'s mesh fleet), the
+phase 12 (a), as `launches_mesh` in phase 12 (c)'s mesh fleet and as
+`launches_tools` over phase 13; NMS, cov and desc_sparse also their
+device ms a launch in phase 6's profiled frame, `path_device_ms`), the
 card's name and power limit, and as the last line {"ok": true, "device":
 {...}}.  Exits
 non-zero, printing no result, without a card or without the repository
@@ -166,7 +189,9 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
+import functools
 import json
 import multiprocessing
 import os
@@ -185,10 +210,59 @@ PROFILE_STEPS, PROFILE_ROWS = 5, 60  # profiled steps, kernel rows printed
 # device_split's windows: the profiler can return no device event for a
 # window several times in a row
 PROFILE_WINDOWS = 8
+# written between a kernel's timed launches, outside the timed window: 2.5x
+# the H100's 50 MB L2, so each launch reads its inputs from HBM, as the
+# bounds assume (back to back, a B=2 desc_dense run read its 23 MB from L2
+# and timed under its HBM bound)
+FLUSH_BYTES = 128 << 20
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _flush_buffer(index):
+    import torch
+
+    return torch.empty(FLUSH_BYTES // 2, dtype=torch.int16,
+                       device=torch.device("cuda", index))
+
+
+def flush_l2():
+    """Overwrite FLUSH_BYTES on the current card: whatever a timed launch
+    reads after this comes from HBM, not from L2."""
+    import torch
+
+    _flush_buffer(torch.cuda.current_device()).fill_(1)
+
+
+@functools.lru_cache(maxsize=None)
+def flush_keys(iters=4):
+    """The profiler's names for `flush_l2`'s device work, which
+    `device_split` leaves out of a kernel's time: the events of `iters`
+    flushes, each come back `iters` times, in one of PROFILE_WINDOWS
+    windows (the profiler can return no device event for a window)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush_l2()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush_l2()
+            torch.cuda.synchronize()
+        rows = [ev for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and not ev.key.startswith("ProfilerStep")]
+        if rows and all(ev.count == iters for ev in rows):
+            return frozenset(ev.key for ev in rows)
+    raise AssertionError(f"profiler: the L2 flush's device events missing "
+                         f"in {PROFILE_WINDOWS} windows; the last: "
+                         f"{[(ev.key, ev.count) for ev in rows]}")
 
 
 def cuda_ms(fn, iters=10, warmup=2):
@@ -209,6 +283,25 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def flushed_ms(fn, iters=10, warmup=2):
+    """A kernel row's time of fn() in ms a call: L2 flushed before each of
+    `iters` calls, outside the call's own pair of CUDA events (the device
+    time, or the host's time to issue the call where that is longer)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in events:
+        flush_l2()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / iters
+
+
 def event_device_us(ev):
     """Device µs of one key_averages() row."""
     return getattr(ev, "self_device_time_total",
@@ -218,29 +311,35 @@ def event_device_us(ev):
 def device_split(fn, iters=20):
     """Device time of fn() alone in ms a call, by device event name: the
     durations of the kernels and memsets it launches, from torch.profiler's
-    device events over `iters` calls after one warm-up call; no host time
-    and no gap between launches counts.  A window in which some device
-    event did not come back a multiple of `iters` times (the profiler can
-    drop events, or, rarely, return none in a window) is taken again, up
-    to PROFILE_WINDOWS windows."""
+    device events over `iters` calls after one warm-up call, L2 flushed
+    before each call; no host time, no gap between launches and none of
+    the flush's events (`flush_keys`, each come back once a call) counts.
+    A window in which some device event did not come back a multiple of
+    `iters` times (the profiler can drop events, or, rarely, return none
+    in a window) is taken again, up to PROFILE_WINDOWS windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    skip = flush_keys()
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                flush_l2()
                 fn()
             torch.cuda.synchronize()
-        rows = [ev for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA
-                and not ev.key.startswith("ProfilerStep")]
+        every = [ev for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA
+                 and not ev.key.startswith("ProfilerStep")]
+        rows = [ev for ev in every if ev.key not in skip]
+        flushes = sorted(ev.count for ev in every if ev.key in skip)
         split = {ev.key: event_device_us(ev) / 1e3 / iters for ev in rows}
-        if sum(split.values()) > 0 and all(ev.count % iters == 0
-                                           for ev in rows):
+        if (sum(split.values()) > 0
+                and all(ev.count % iters == 0 for ev in rows)
+                and flushes == [iters] * len(skip)):
             return split
     raise AssertionError(f"profiler: device events missing in "
                          f"{PROFILE_WINDOWS} windows; the last: "
@@ -260,24 +359,29 @@ def device_ms(fn, iters=20):
 
 
 def host_us(fn, iters=50):
-    """Wall µs a call when each call is waited for (fn(), then synchronize,
-    `iters` times after one warm-up call): what one call costs a caller
-    that reads its result, host work and launch included."""
+    """Wall µs a call when each call is waited for (L2 flushed and the
+    card idle, then fn() and synchronize, `iters` times after one warm-up
+    call): what one call costs a caller that reads its result, host work
+    and launch included."""
     import torch
 
     fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    total = 0.0
     for _ in range(iters):
+        flush_l2()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e6 / iters
+        total += time.perf_counter() - t0
+    return total * 1e6 / iters
 
 
 def kernel_times(fn, iters):
-    """ms (CUDA events over back-to-back calls), device_ms (device time
-    alone) and host_us (each call waited for) of one wrapper call."""
-    return dict(ms=cuda_ms(fn, iters=iters), device_ms=device_ms(fn),
+    """ms (CUDA events around each call), device_ms (device time alone)
+    and host_us (each call waited for) of one wrapper call, each with L2
+    flushed before every call."""
+    return dict(ms=flushed_ms(fn, iters), device_ms=device_ms(fn),
                 host_us=host_us(fn))
 
 
@@ -341,9 +445,11 @@ ROW_KEYS = ("name", "max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
 
 def kernel_table(rows, floor, smi):
     """Phase 2's table: each kernel's times at B=32 and at its path's batch
-    (ms: CUDA events over back-to-back calls; dev: device time alone;
-    host µs: each call waited for), beside its bound, and the floor."""
-    lines = [f"kernel times | {smi}",
+    (ms: CUDA events around each call; dev: device time alone; host µs:
+    each call waited for), beside its bound, and the floor.  L2 is flushed
+    before each call: cold-cache readings, where a path's kernel may find
+    its inputs in L2 (phase 6 prints the SLAM path's own times)."""
+    lines = [f"kernel times, L2 flushed before each call | {smi}",
              f"{'kernel':<12} {'ms':>8} {'dev ms':>8} {'host us':>8} "
              f"{'bound':>8} | {'B':>2} {'ms':>8} {'dev ms':>8} "
              f"{'host us':>8} {'bound':>8}"]
@@ -356,6 +462,19 @@ def kernel_table(rows, floor, smi):
                  f"{floor['device_ms']:8.4f} {floor['host_us']:8.1f} "
                  f"(the empty kernel through _build.launch)")
     return lines
+
+
+def check_bounds(rows):
+    """No time of a kernel row may read under its bound: one that does was
+    measured from a warm cache or against a wrong count."""
+    under = [f"{r['name']} {col} {r[col]:.5f} < {r[bound]:.5f}"
+             for r in rows
+             for col, bound in (("ms", "bound_ms"), ("device_ms", "bound_ms"),
+                                ("launch_ms", "launch_bound_ms"),
+                                ("launch_device_ms", "launch_bound_ms"))
+             if r[col] < r[bound]]
+    if under:
+        raise AssertionError(f"kernel times under their bounds: {under}")
 
 
 def unit_rows(x):
@@ -484,9 +603,9 @@ def check_pair1t(state, gen, dev, build_logs):
         replaces="sp_orb_slam_tpu/ops/pallas_pair1t.py:257",
         max_abs_err=max(errs),
         **kernel_times(lambda: cuda_pair1t.fused_pair1t(images, *w), 20),
-        plain_ms=cuda_ms(lambda: cuda_pair1t.fused_pair1t_plain(images, *w),
-                         iters=5),
-        bound_ms=bms, bound_by=by, library_ms=cuda_ms(library))
+        plain_ms=flushed_ms(
+            lambda: cuda_pair1t.fused_pair1t_plain(images, *w), iters=5),
+        bound_ms=bms, bound_by=by, library_ms=flushed_ms(library))
     # its path: the bf16 frontend of phase 3 with conv_packing="pair1t"
     return at_launch_shape(
         row, 2, lambda nb: cuda_pair1t.fused_pair1t(images[:nb], *w), bound,
@@ -532,9 +651,8 @@ def check_pair1(state, gen, dev):
     times = {}
     for nb in (B, 8, 1):
         x = images[:nb]
-        times[nb] = (cuda_ms(lambda: cuda_pair1.fused_pair1(x, *w), iters=20),
-                     cuda_ms(lambda: cuda_pair1t.fused_pair1t(x, *w),
-                             iters=20))
+        times[nb] = (flushed_ms(lambda: cuda_pair1.fused_pair1(x, *w), 20),
+                     flushed_ms(lambda: cuda_pair1t.fused_pair1t(x, *w), 20))
         log(f"pair1 B={nb}: {times[nb][0]:.4f} ms, the pair1t kernel "
             f"{times[nb][1]:.4f} ms on the same inputs, bound "
             f"{bound(nb)[0]:.4f} ms")
@@ -544,9 +662,9 @@ def check_pair1(state, gen, dev):
         replaces="sp_orb_slam_tpu/ops/pallas_pair1.py:250",
         max_abs_err=max(errs),
         **kernel_times(lambda: cuda_pair1.fused_pair1(images, *w), 20),
-        plain_ms=cuda_ms(lambda: cuda_pair1.fused_pair1_plain(images, *w),
-                         iters=5),
-        bound_ms=bms, bound_by=by, library_ms=cuda_ms(library))
+        plain_ms=flushed_ms(
+            lambda: cuda_pair1.fused_pair1_plain(images, *w), iters=5),
+        bound_ms=bms, bound_by=by, library_ms=flushed_ms(library))
     # its path: the bf16 fleet, 8 streams
     return at_launch_shape(
         row, 8, lambda nb: cuda_pair1.fused_pair1(images[:nb], *w), bound,
@@ -631,7 +749,8 @@ def check_nms(gen, dev):
         max_abs_err=float(diff),  # cells that differ (a bool mask)
         **kernel_times(lambda: cuda_nms.batched_grid_nms(score, uv, valid),
                        50),
-        plain_ms=cuda_ms(lambda: greedy_grid_nms(score, uv, valid), iters=5),
+        plain_ms=flushed_ms(lambda: greedy_grid_nms(score, uv, valid),
+                            iters=5),
         bound_ms=bms, bound_by=by, library_ms=None)
     return at_launch_shape(row, 1, lambda nb: cuda_nms.batched_grid_nms(
         score[:nb], uv[:nb], valid[:nb]), bound, iters=50)
@@ -676,19 +795,20 @@ def check_cov(gen, dev):
         replaces="sp_orb_slam_tpu/ops/pallas_cov.py:189", max_abs_err=err,
         **kernel_times(lambda: cuda_cov.batched_covariance(heat, uv, valid),
                        50),
-        plain_ms=cuda_ms(lambda: keypoint_covariance(heat, uv, valid),
-                         iters=5),
+        plain_ms=flushed_ms(lambda: keypoint_covariance(heat, uv, valid),
+                            iters=5),
         bound_ms=bms, bound_by=by, library_ms=None)
     return at_launch_shape(row, 1, lambda nb: cuda_cov.batched_covariance(
         heat[:nb], uv[:nb], valid[:nb]), bound, iters=50)
 
 
-def match_disagreements(args, m12_k, m12_p):
+def match_disagreements(args, m12_k, m12_p, window=100, ratio=0.9):
     """Rows (b, r) where the kernel's match12 differs from the plain
     version's, and how many of them are near-ties: a disagreement is
     excused only where the plain version's competing distances (best vs
     second, best vs the TH_LOW / ratio thresholds, or two rows claiming one
-    column) are within 1e-5 of each other."""
+    column) are within 1e-5 of each other.  `window` and `ratio`: the
+    call's own."""
     import torch
 
     from sp_orb_slam_tpu_torch.ops import matching as mt
@@ -698,12 +818,12 @@ def match_disagreements(args, m12_k, m12_p):
     excused = 0
     for b, r in bad:
         dist = mt.pairwise_dist(d1[b], d2[b]).double()
-        mask = mt.window_mask(uv1[b], v1[b], uv2[b], v2[b], 100)
+        mask = mt.window_mask(uv1[b], v1[b], uv2[b], v2[b], window)
         dd = torch.where(mask, dist, mt.BIG)[r]
         two = torch.topk(dd, 2, largest=False).values
         best, second = float(two[0]), float(two[1])
         gaps = [second - best, abs(best - mt.TH_LOW),
-                abs(best - 0.9 * second)]
+                abs(best - ratio * second)]
         col = int(dd.argmin())
         colmins = torch.where(mask, dist, mt.BIG)[:, col]
         others = torch.cat([colmins[:r], colmins[r + 1:]])
@@ -765,7 +885,7 @@ def check_match(gen, dev):
         replaces="sp_orb_slam_tpu/ops/pallas_match.py:137",
         max_abs_err=float(len(bad)),  # rows whose match index differs
         **kernel_times(lambda: cuda_match.match_init_batch(*args), 20),
-        plain_ms=cuda_ms(lambda: init_match(*args), iters=5),
+        plain_ms=flushed_ms(lambda: init_match(*args), iters=5),
         bound_ms=bms, bound_by=by, library_ms=None)
     row = at_launch_shape(row, 1, lambda nb: cuda_match.match_init_batch(
         *(a[:nb] for a in args)), bound, iters=50)
@@ -850,9 +970,10 @@ def check_desc_sparse(gen, dev):
         replaces="sp_orb_slam_tpu/ops/pallas_desc.py:272", max_abs_err=err,
         **kernel_times(lambda: cuda_desc.sample_descriptors_sparse(
             coarse, uv, (H, W)), 50),
-        plain_ms=cuda_ms(lambda: sample_descriptors(coarse, uv, (H, W)),
-                         iters=10),
-        bound_ms=bms, bound_by=by, library_ms=cuda_ms(library, iters=20))
+        plain_ms=flushed_ms(lambda: sample_descriptors(coarse, uv, (H, W)),
+                            iters=10),
+        bound_ms=bms, bound_by=by,
+        library_ms=flushed_ms(library, iters=20))
     return at_launch_shape(
         row, 1, lambda nb: cuda_desc.sample_descriptors_sparse(
             coarse[:nb], uv[:nb], (H, W)), bound, iters=50)
@@ -900,9 +1021,10 @@ def check_desc_dense(gen, dev):
         replaces="sp_orb_slam_tpu/ops/pallas_desc.py:156", max_abs_err=err,
         **kernel_times(lambda: cuda_desc.sample_descriptors_dense_batch(
             coarse, cand, (H, W)), 50),
-        plain_ms=cuda_ms(lambda: sample_descriptors_dense(coarse, cand,
-                                                          (H, W)), iters=5),
-        bound_ms=bms, bound_by=by, library_ms=cuda_ms(library, iters=20))
+        plain_ms=flushed_ms(lambda: sample_descriptors_dense(
+            coarse, cand, (H, W)), iters=5),
+        bound_ms=bms, bound_by=by,
+        library_ms=flushed_ms(library, iters=20))
     # its path: the frontend of phase 3 with desc_method="pallas", 2 images
     return at_launch_shape(
         row, 2, lambda nb: cuda_desc.sample_descriptors_dense_batch(
@@ -1568,11 +1690,16 @@ def profile_step(step, carry):
 
 # ---------------------------------------------------------------- phase 6
 
-SLAM_FRAMES = 220
+SLAM_FRAMES = 220     # room 5's frames (phases 8 and 9 spin them all)
+OFFLINE_FRAMES = 120  # phase 6: the first of them (cut from 220 for the
+#                       time limit when phase 13 came)
 PROFILE_FRAMES = 1    # the spin's last frames, profiled apart from the rest
 #                       (3 until phase 9 came: its post-processing costs
 #                       ~18 s a frame)
 SLAM_ROWS = 12        # kernel and CPU-op rows printed
+# the profiler's names for the kernels the SLAM path launches once a frame
+IN_PATH = (("nms", "nms_kernel"), ("cov", "cov_kernel"),
+           ("desc_sparse", "desc_sparse_kernel"))
 
 
 def keep_samples(timer):
@@ -1604,9 +1731,10 @@ def time_process(sys_):
 
 
 def slam_phase(state, dev, smi, frames):
-    """The offline SLAM path on the card over the held-out rendered room
-    (texture seed 5), then the gates.  One System spins the first
-    SLAM_FRAMES - PROFILE_FRAMES frames with no profiler and no synchronize
+    """The offline SLAM path on the card over the first OFFLINE_FRAMES
+    frames of the held-out rendered room (texture seed 5), then the gates.
+    One System spins the first OFFLINE_FRAMES - PROFILE_FRAMES frames with
+    no profiler and no synchronize
     of its own (the pipeline's readbacks are its only waits): the per-frame
     wall time of `System.process` and the `Timer` spans come from that
     spin.  The same System then spins the last PROFILE_FRAMES frames under
@@ -1627,7 +1755,7 @@ def slam_phase(state, dev, smi, frames):
     sys_ = System(cfg, params=state, device=dev)
     spans = keep_samples(sys_.timer)
     per_frame = time_process(sys_)
-    n_timed = SLAM_FRAMES - PROFILE_FRAMES
+    n_timed = OFFLINE_FRAMES - PROFILE_FRAMES
     zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1640,7 +1768,7 @@ def slam_phase(state, dev, smi, frames):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        sys_.spin(frames[n_timed:])
+        sys_.spin(frames[n_timed:OFFLINE_FRAMES])
         torch.cuda.synchronize()
         win_ms = (time.perf_counter() - t1) * 1e3
     launches = read_launches("SLAM", SLAM_KERNELS)
@@ -1661,7 +1789,16 @@ def slam_phase(state, dev, smi, frames):
     ops.sort(reverse=True)
     busy = sum(k[0] for k in kern) * PROFILE_FRAMES
     n_kern = sum(k[1] for k in kern)
-    lines = [f"SLAM: {SLAM_FRAMES} frames of the rendered room (seed 5) at "
+    # each kernel's device ms a launch as the path runs it: its inputs as
+    # the preceding kernels left them in L2 (phase 2 times it cold)
+    in_path = {}
+    for ms, n, key in kern:
+        for name, prefix in IN_PATH:
+            if short_name(key).startswith(prefix):
+                t, c = in_path.get(name, (0.0, 0.0))
+                in_path[name] = (t + ms, c + n)
+    in_path = {k: t / c for k, (t, c) in in_path.items()}
+    lines = [f"SLAM: {OFFLINE_FRAMES} frames of the rendered room (seed 5) at "
              f"{cfg.camera.width}x{cfg.camera.height}, K="
              f"{cfg.runtime.max_keypoints}, {cfg.extractor.dtype} | {smi}",
              f"SLAM: unprofiled spin of frames 0-{n_timed - 1}: wall "
@@ -1675,7 +1812,7 @@ def slam_phase(state, dev, smi, frames):
                      f"{np.percentile(v, 90):.2f} mean {v.mean():.2f} max "
                      f"{v.max():.2f} ms (n={len(v)}) | {smi}")
     # no floor on the idle share: a device sum above the wall time shows
-    lines.append(f"SLAM profile: frames {n_timed}-{SLAM_FRAMES - 1} | wall "
+    lines.append(f"SLAM profile: frames {n_timed}-{OFFLINE_FRAMES - 1} | wall "
                  f"{win_ms / PROFILE_FRAMES:.2f} ms/frame (profiler on) | "
                  f"device busy {busy / PROFILE_FRAMES:.2f} ms/frame | idle "
                  f"share {1 - busy / win_ms:.3f} | "
@@ -1683,6 +1820,10 @@ def slam_phase(state, dev, smi, frames):
     lines.append(f"{'ms/frame':>9} {'calls':>7}  kernel (top {SLAM_ROWS})")
     lines += [f"{ms:9.3f} {n:7.0f}  {k[:100]}" for ms, n, k in
               kern[:SLAM_ROWS]]
+    lines.append("SLAM profile, the port's kernels in the path, device ms a "
+                 "launch: " + ", ".join(
+                     f"{k} {in_path[k]:.4f}" if k in in_path else
+                     f"{k} not among the profiled events" for k, _ in IN_PATH))
     lines.append(f"{'ms/frame':>9} {'calls':>7}  CPU op, self time "
                  f"(top {SLAM_ROWS})")
     lines += [f"{ms:9.3f} {n:7.0f}  {k[:100]}" for ms, n, k in
@@ -1691,16 +1832,16 @@ def slam_phase(state, dev, smi, frames):
                  f"rmse {ate.rmse:.4f} mean {ate.mean:.4f} over "
                  f"{ate.n_pairs} frames | {smi}")
     log("\n".join(lines))
-    if not (rep["n_lost"] == 0 and rep["n_frames"] >= 0.8 * SLAM_FRAMES
+    if not (rep["n_lost"] == 0 and rep["n_frames"] >= 0.8 * OFFLINE_FRAMES
             and ate.rmse < 0.2):
         raise AssertionError("SLAM gates failed (0 LOST, >= 80 % tracked, "
                              "ATE rmse < 0.2)")
-    if launches["desc_sparse"] != SLAM_FRAMES:
+    if launches["desc_sparse"] != OFFLINE_FRAMES:
         raise AssertionError(f"desc_sparse launched "
                              f"{launches['desc_sparse']} times for "
-                             f"{SLAM_FRAMES} frames")
+                             f"{OFFLINE_FRAMES} frames")
     first = dict(wall_ms=wall * 1e3 / n_timed, spans=timed_spans,
-                 process=pf)
+                 process=pf, in_path=in_path)
     return launches, float(ate.rmse), first
 
 
@@ -1724,12 +1865,12 @@ def span_line(tag, v, smi):
 
 def loop_phase(state, dev, smi, frames, ate_off):
     """SLAM with loop closing on the card: a System with `use_loop` and
-    the fitted NetVLAD checkpoint spins phase 6's rendered room (the
-    JAX package closes its loop on these 220 frames), with no profiler and
+    the fitted NetVLAD checkpoint spins room 5's 220 rendered frames (the
+    JAX package closes its loop on them), with no profiler and
     no synchronize of its own; then the gates: a loop closed, 0 LOST,
     >= 80 % tracked, ATE < 0.2, the SLAM kernels launched as the frames
-    ask.  `ate_off` is phase 6's ATE on the same frames without loop
-    closing."""
+    ask.  `ate_off` is phase 6's ATE without loop closing, over its first
+    OFFLINE_FRAMES frames."""
     import numpy as np
     import torch
 
@@ -1814,8 +1955,8 @@ def loop_phase(state, dev, smi, frames, ate_off):
                  f"{sys_.looper.loops} | {smi}")
     lines.append(f"SLAM + loop result: {json.dumps(rep, default=float)} | "
                  f"ATE rmse {ate.rmse:.4f} mean {ate.mean:.4f} over "
-                 f"{ate.n_pairs} frames, loop closing off (phase 6) "
-                 f"{ate_off:.4f} | {smi}")
+                 f"{ate.n_pairs} frames, loop closing off (phase 6, its "
+                 f"{OFFLINE_FRAMES} frames) {ate_off:.4f} | {smi}")
     log("\n".join(lines))
     if not (rep["n_loops_closed"] >= 1 and rep["n_lost"] == 0
             and rep["n_frames"] >= 0.8 * len(frames) and ate.rmse < 0.2):
@@ -1832,7 +1973,7 @@ def loop_phase(state, dev, smi, frames, ate_off):
 # ---------------------------------------------------------------- phase 9
 
 ONLINE_KERNELS = ("nms", "cov", "desc_sparse")  # once a frame after warmup
-ONLINE_TRACKED = 176  # frames tracked of SLAM_FRAMES (phase 6's 80 %)
+ONLINE_TRACKED = 176  # frames tracked of SLAM_FRAMES (phase 6's 80 % gate)
 ONLINE_WAIT = 120.0   # seconds any wait of the phase may take
 # the TrackingKernels stages a run may call (tests/test_torch_warmup.py)
 STAGES = ("gather_rows", "dust_track", "dust_track_batch", "heat_track",
@@ -1901,11 +2042,12 @@ def online_config():
 def online_phase(state, dev, smi, frames, ate_off, ate_loop):
     """The online mode on the card: phase 8's System with mapping and loop
     closing on their own threads beside tracking, warmed up, spun over
-    phase 6's 220 frames from memory, then shut down (drained and joined).
+    room 5's 220 frames from memory, then shut down (drained and joined).
     Where no loop closed, a forced leg runs the transient global BA over
     the online map on its own thread, the caller taking the map lock
     while it solves.  Returns the phase's numbers for `online_gates`.
-    `ate_off` / `ate_loop`: phases 6 and 8's ATE on the same frames."""
+    `ate_off` / `ate_loop`: phases 6 and 8's ATE (phase 6 over its
+    OFFLINE_FRAMES frames)."""
     import threading
 
     import numpy as np
@@ -2038,7 +2180,8 @@ def online_phase(state, dev, smi, frames, ate_off, ate_loop):
              f"call: {sorted(spun - warmed)}",
              f"online result: {json.dumps(rep, default=float)} | ATE rmse "
              f"{ate.rmse:.4f} mean {ate.mean:.4f} over {ate.n_pairs} frames; "
-             f"offline (phase 6) {ate_off:.4f}, offline + loop (phase 8) "
+             f"offline (phase 6, {OFFLINE_FRAMES} frames) {ate_off:.4f}, "
+             f"offline + loop (phase 8) "
              f"{ate_loop:.4f} | {smi}"]
     if forced is not None:
         lines.append(f"online: no loop closed, forced GBA leg: {forced}")
@@ -2132,7 +2275,8 @@ FLEET_FRAMES = 80     # ticks; each stream runs the first frames of the
 FLEET_SHORT = 72      # the last stream ends here: idle rows for 8 ticks
 FLEET_PROFILE = 1     # the last ticks, profiled apart from the rest
 FLEET_TRACKED = 0.75  # tracked share gate of each stream
-LOC_TICKS = 20        # localization leg: stream i runs frames 20+2i ..
+LOC_TICKS = 10        # localization leg: stream i runs frames 20+2i ..
+#                       (cut from 20 for the time limit when phase 13 came)
 FLEET_KERNELS = ("pair1", "nms", "cov", "desc_sparse", "match")
 FLEET_SPANS = ("fleet/features", "fleet/dust", "fleet/coarse",
                "fleet/local", "fleet/retry", "fleet/fine")
@@ -2198,8 +2342,9 @@ def fleet_phase(state, dev, smi, frames, gt, cfg=None):
     per_stream = {tag: sum(s.timer.tags[tag].total for s in fleet.systems
                            if tag in s.timer.tags)
                   for tag in ("tracking/total", "mapping")}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device events only: the CPU operators' events would double
+    # key_averages' time and are not read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         for k in range(n_timed, FLEET_FRAMES):
             fleet.tick(raws(k))
@@ -2346,7 +2491,8 @@ CHECKS = ("pair1t", "pair1", "nms", "cov", "match", "desc_sparse",
 
 # --------------------------------------------------------- phases 10, 10b
 
-HEAT_FRAMES = 120     # phase 10: the first frames of phase 6's room
+HEAT_FRAMES = 40      # phase 10: the first frames of phase 6's room (cut
+#                       from 120 for the time limit when phase 13 came)
 HEAT_TICKS = 30       # phase 10b: ticks of rooms HEAT_ROOMS (phase 7's)
 HEAT_ROOMS = (4, 5)
 HEAT_SPANS = ("tracking/frame", "tracking/total", "mapping")
@@ -2416,7 +2562,7 @@ def heat_phase(state, dev, smi, frames, slam_stats):
              f"coarse_method=heat, matching_method=2 | {smi}",
              f"heat + epipolar SLAM: wall {wall:.3f} s, "
              f"{wall * 1e3 / n:.2f} ms/frame (phase 6: "
-             f"{slam_stats['wall_ms']:.2f} over its {SLAM_FRAMES - 1} "
+             f"{slam_stats['wall_ms']:.2f} over its {OFFLINE_FRAMES - 1} "
              f"frames) | {smi}",
              span_line("heat + epipolar System.process ms/frame", pf, smi),
              span_line(f"phase 6 System.process ms/frame, frames 0-{n - 1}",
@@ -3383,6 +3529,310 @@ def mesh_phase(state, dev, smi, rooms, gt):
             mesh_fleet_phase(state, dev, smi, rooms, gt))
 
 
+# ---------------------------------------------------------------- phase 13
+
+TOOL_KERNELS = ("nms", "cov", "desc_sparse")  # (a)-(c); match also in (a)
+REPLAY_FRAMES = 80       # (d): tests/test_depth_filter.py's frames
+REPLAY_SEED = 1          # (d): tests/test_depth_filter.py's seed
+SWEEP_SEEDS = (1, 2, 3)  # (e)
+SWEEP_FRAMES = 50        # (e): tests/test_e2e_synthetic.py's frames (cut
+#                          from the sweep tool's 80 for the time limit)
+SWEEP_ATE = 0.1          # (e): the rail's gate (tests/test_e2e_synthetic.py)
+TOOL_THREADS = 2         # torch threads a process: six share 8 host cores
+CAPTURE_CAP = 32         # calls kept a kernel and input shape
+
+
+def tool_kernels():
+    """(name, module, wrapper, plain version) of each kernel the tools
+    launch; the plain version takes the wrapper's arguments."""
+    from sp_orb_slam_tpu_torch.models.superpoint import sample_descriptors
+    from sp_orb_slam_tpu_torch.ops import (cuda_cov, cuda_desc, cuda_match,
+                                           cuda_nms)
+    from sp_orb_slam_tpu_torch.ops.covariance import keypoint_covariance
+    from sp_orb_slam_tpu_torch.ops.matching import init_match
+    from sp_orb_slam_tpu_torch.ops.nms import greedy_grid_nms
+
+    return (("nms", cuda_nms, "batched_grid_nms", greedy_grid_nms),
+            ("cov", cuda_cov, "batched_covariance", keypoint_covariance),
+            ("desc_sparse", cuda_desc, "sample_descriptors_sparse",
+             sample_descriptors),
+            ("match", cuda_match, "match_init_batch", init_match))
+
+
+def _copy(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return tuple(map(_copy, x)) if isinstance(x, tuple) else x
+
+
+@contextlib.contextmanager
+def captured_calls():
+    """Inside the block, each tool kernel's wrapper keeps copies of the
+    inputs and outputs of its first CAPTURE_CAP calls at each input shape:
+    yields {(kernel, shapes, keywords): [(args, keywords, output), ...]}.
+    The wrapper still launches its kernel once a call."""
+    import torch
+
+    calls = collections.defaultdict(list)
+    saved = []
+
+    def spy(name, fn):
+        def call(*args, **kw):
+            key = (name, tuple(tuple(a.shape) if isinstance(a, torch.Tensor)
+                               else a for a in args),
+                   tuple(sorted(kw.items())))
+            keep = len(calls[key]) < CAPTURE_CAP
+            inputs = _copy(args) if keep else None
+            out = fn(*args, **kw)
+            if keep:
+                calls[key].append((inputs, kw, _copy(out)))
+            return out
+        return call
+
+    for name, mod, attr, _ in tool_kernels():
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, spy(name, saved[-1][2]))
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _disagreement(name, plain, args, kw, got):
+    """(measure, within tolerance) of one captured call against the plain
+    version on its inputs, with phase 2's tolerances: NMS cells differing
+    (none); cov's cov2 max_abs_err (1e-5, the response equal);
+    desc_sparse's max_abs_err (1e-5, finite); match rows differing (near-
+    ties only)."""
+    import torch
+
+    want = plain(*args, **kw)
+    if name == "nms":
+        n = int((got != want).sum())
+        return n, n == 0
+    if name == "cov":
+        err = float((got[0] - want[0]).abs().max())
+        return err, err <= 1e-5 and bool(torch.equal(got[2], want[2]))
+    if name == "desc_sparse":
+        err = float((got - want).abs().max())
+        return err, err <= 1e-5 and bool(torch.isfinite(got).all())
+    bad, excused = match_disagreements(args, got[0], want[0],
+                                       kw.get("window", 100),
+                                       kw.get("ratio", 0.9))
+    return len(bad), excused == len(bad)
+
+
+def captures_agree(calls, what):
+    """Every call kept by `captured_calls` against its kernel's plain
+    version (no kernel launch): a line a kernel and input shape, and
+    raises if one disagrees."""
+    plain = {name: fn for name, _, _, fn in tool_kernels()}
+    lines, failed = [], []
+    for (name, shapes, kw), kept in calls.items():
+        res = [_disagreement(name, plain[name], a, k, out)
+               for a, k, out in kept]
+        dims = " ".join("x".join(map(str, s)) for s in shapes
+                        if isinstance(s, tuple) and len(s) > 1)
+        unit = "max_abs_err" if name in ("cov", "desc_sparse") else "differ"
+        lines.append(f"{what}: {name} at {dims} {dict(kw)}: {len(res)} "
+                     f"calls against the plain version, worst {unit} "
+                     f"{max(r[0] for r in res):.3g}")
+        if not all(r[1] for r in res):
+            failed.append(f"{name} at {dims}")
+    if failed:
+        raise AssertionError(f"{what}: kernels disagree with their plain "
+                             f"versions at the tools' shapes: {failed}")
+    return lines
+
+
+def replay_worker(depth_filter, device):
+    """Phase 13 (d)'s run of replay_degenerate in a process of its own:
+    (run_one's dict, the process's launches, its seconds).  The run ends
+    in host reads of the trajectory, after the card's last work."""
+    import torch
+
+    from sp_orb_slam_tpu_torch.ops import _build
+    from sp_orb_slam_tpu_torch.scripts import replay_degenerate
+
+    torch.set_num_threads(TOOL_THREADS)
+    zero_launches()
+    t0 = time.perf_counter()
+    out = replay_degenerate.run_one(REPLAY_SEED, depth_filter, REPLAY_FRAMES,
+                                    device=device)
+    return out, dict(_build.LAUNCHES), time.perf_counter() - t0
+
+
+def sweep_worker(seed, device):
+    """Phase 13 (e): accuracy_sweep over one seed in a process of its own,
+    under `captured_calls`: (the summary, its log lines and the captures'
+    comparison lines, the process's launches, its seconds)."""
+    import torch
+
+    from sp_orb_slam_tpu_torch.ops import _build
+    from sp_orb_slam_tpu_torch.scripts import accuracy_sweep
+
+    torch.set_num_threads(TOOL_THREADS)
+    zero_launches()
+    lines = []
+    t0 = time.perf_counter()
+    with captured_calls() as calls:
+        sw = accuracy_sweep.sweep(
+            [seed], SWEEP_FRAMES, device=device,
+            log=lambda line: lines.append(f"tools (e) {line}"))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    return sw, lines + captures_agree(calls, "tools (e)"), counts, sec
+
+
+def tools_phase(state, dev, smi):
+    """Phase 13: the port's user tools (sp_orb_slam_tpu_torch/scripts/)
+    through their functions on the card.  (a) validate_weights on the
+    committed checkpoint at 752x480 (gates: phase 3's, > 150 keypoints,
+    > 60 init matches, > 90 % within 3 px); (b) vlad_rendered_stats
+    (printed); (c) the default fit_vlad_centroids run into a temporary
+    directory (gates: the file loads through the port's load_params; the
+    selected revisit - distinct margin above the random codebook's, and
+    its distinct median under the detector's 0.2 candidate floor, the
+    random codebook's over it; the detector margins are printed, not
+    gated: at this size both packages' fits tie the random codebook's on
+    the CPU, 0.093 and 0.092 against 0.092, within the k-means' own
+    float32 spread), the committed weights/vlad_rendered.npz scored on the
+    same held-out frames beside it; (d) replay_degenerate, seed 1, depth
+    filter off and on, 80 frames (tests/test_depth_filter.py's gates: no
+    more LOST frames with the filter, rmse under max(0.6, 0.8 x off)); (e)
+    accuracy_sweep over seeds 1-3 x 50 frames, a seed a process, each
+    warmed up (gates: 0 LOST, no failed seed, each ATE < 0.1).  (a)-(c)
+    run here with the launch counters zeroed before each leg and read
+    after; (d)'s two runs and (e)'s three run in five processes of their
+    own beside them, each counting its own launches.  NMS / cov / desc_sparse must launch in (a)-(c), match in
+    (a), (d) and (e).  In (a)-(c) and (e) each kernel's output at every
+    input shape the tools give it (NMS's cluster and grid at 376x240, the
+    match at the rail's K=256, ...) is held against its plain version on
+    the same inputs (`captured_calls`, `captures_agree`).
+    Returns the phase's launches, summed over the legs."""
+    import torch
+
+    launches = collections.Counter()
+    secs = {}
+
+    def leg(name, expected, fn):
+        zero_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches.update(read_launches(f"tools ({name})", expected))
+        return out
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(TOOL_THREADS)
+    ctx = multiprocessing.get_context("spawn")
+    try:
+        with concurrent.futures.ProcessPoolExecutor(
+                max_workers=5, mp_context=ctx) as pool:
+            replays = {df: pool.submit(replay_worker, df, str(dev))
+                       for df in (False, True)}
+            sweeps = {seed: pool.submit(sweep_worker, seed, str(dev))
+                      for seed in SWEEP_SEEDS}
+            with captured_calls() as calls:
+                image_legs(state, dev, smi, leg)
+            log("\n".join(captures_agree(calls, "tools (a)-(c)")))
+            runs = {df: f.result() for df, f in replays.items()}
+            seeds = {seed: f.result() for seed, f in sweeps.items()}
+    finally:
+        torch.set_num_threads(threads)
+    for df, (_, counts, sec) in runs.items():
+        name = f"d replay df={'on' if df else 'off'}"
+        secs[name] = sec
+        log(f"tools ({name}) launches in its process: {counts}")
+        if counts["match"] < 1:
+            raise AssertionError(f"tools ({name}): match never launched")
+        launches.update(counts)
+    off, on = runs[False][0], runs[True][0]
+    log(f"tools (d) replay_degenerate seed {REPLAY_SEED}, {REPLAY_FRAMES} "
+        f"frames: off {json.dumps(off)}; on {json.dumps(on)} | {smi}")
+    if not (on["n_lost"] <= off["n_lost"]
+            and on["rmse"] < max(0.6, 0.8 * off["rmse"])):
+        raise AssertionError("tools (d): replay_degenerate gates failed")
+
+    rows = []
+    for seed, (sw, lines, counts, sec) in seeds.items():
+        secs[f"e sweep seed {seed}"] = sec
+        log("\n".join(lines))
+        log(f"tools (e sweep seed {seed}) launches in its process: {counts}")
+        if counts["match"] < 1:
+            raise AssertionError(f"tools (e sweep seed {seed}): match never "
+                                 f"launched")
+        launches.update(counts)
+        log(f"tools (e) accuracy_sweep seed {seed}, {SWEEP_FRAMES} frames: "
+            f"{json.dumps(sw)} | {smi}")
+        rows += sw["rows"]
+    if not all(r["n_lost"] == 0 and r["ok"] and r["ate_rmse"] < SWEEP_ATE
+               for r in rows):
+        raise AssertionError("tools (e): accuracy_sweep gates failed")
+    log("tools seconds by leg ((d) and (e) in processes of their own beside "
+        "(a)-(c)): " + ", ".join(f"{k} {v:.1f}"
+                                 for k, v in sorted(secs.items())))
+    return launches
+
+
+def image_legs(state, dev, smi, leg):
+    """Phase 13's legs (a), (b) and (c), in this process."""
+    import tempfile
+
+    import numpy as np
+
+    from sp_orb_slam_tpu_torch.config import Config
+    from sp_orb_slam_tpu_torch.models import netvlad
+    from sp_orb_slam_tpu_torch.scripts import fit_vlad_centroids as fitv
+    from sp_orb_slam_tpu_torch.scripts import (validate_weights,
+                                               vlad_rendered_stats)
+
+    val = leg("a validate", TOOL_KERNELS + ("match",),
+              lambda: validate_weights.validate(state, device=dev))
+    log(f"tools (a) validate_weights: {json.dumps(val)} | {smi}")
+    if not (min(val["n_kp"]) > 150 and val["init_matches"] > 60
+            and val["init_precision"] > 0.9):
+        raise AssertionError("tools (a): validate_weights gates failed")
+
+    st = leg("b stats", TOOL_KERNELS,
+             lambda: vlad_rendered_stats.stats(state, device=dev))
+    log(f"tools (b) vlad_rendered_stats: {json.dumps(st)} | {smi}")
+
+    res = leg("c fit", TOOL_KERNELS, lambda: fitv.fit(state, device=dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vlad_rendered.npz")
+        np.savez(path, **res.save)
+        loaded = netvlad.load_params(path)
+    committed = fitv.codebook_score(
+        netvlad.load_params(os.path.join(HERE, "weights",
+                                         "vlad_rendered.npz")),
+        *res.ev, res.pairs)
+    fit = res.summary
+    sel = fit["selected"]
+    key = f"a{sel['alpha']:g}_r{sel['residual']:g}_{sel['mode']}"
+    log("\n".join([
+        f"tools (c) fit_vlad_centroids: {fit['n_train_desc']} training "
+        f"descriptors, {fit['clusters']} clusters, selected {sel} "
+        f"| {smi}",
+        f"tools (c) selected {json.dumps(fit['stats'][key])}",
+        f"tools (c) random codebook {json.dumps(fit['stats']['random_init'])}",
+        f"tools (c) committed weights/vlad_rendered.npz on the same frames "
+        f"{json.dumps(committed)}",
+        f"tools (c) the written file loads: centroids "
+        f"{loaded['centroids'].shape}, proj {loaded['proj'].shape}"]))
+    got, rand = fit["stats"][key], fit["stats"]["random_init"]
+    floor = Config().loop.min_score_floor
+    if not (loaded["centroids"].shape == (fit["clusters"], 256)
+            and got["margin"] > rand["margin"]
+            and got["distinct"] < floor < rand["distinct"]):
+        raise AssertionError("tools (c): fit_vlad_centroids gates failed")
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     kernels_only = argv[:1] == ["--kernels"]
@@ -3454,6 +3904,7 @@ def main(argv) -> int:
     if {"nms", "cov"} & set(names):
         check_real(state, dev, rooms[5], names)
     log("\n".join(kernel_table(rows, launch_floor(dev), smi)))
+    check_bounds(rows)
     if kernels_only:
         log(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS}
                                     for r in rows]}))
@@ -3496,6 +3947,8 @@ def main(argv) -> int:
     stamp("viewer")
     step_mesh, fleet_mesh = mesh_phase(state, dev, smi, rooms, gt)
     stamp("mesh")
+    tools = tools_phase(state, dev, smi)
+    stamp("tools")
     # each kernel's launches on the path that runs it: the SLAM path for
     # its kernels, the bf16 frontend with conv_packing="pair1t" for pair1t,
     # desc_method="pallas" for desc_dense, the bf16 fleet for pair1
@@ -3516,9 +3969,13 @@ def main(argv) -> int:
                               else heat)[r["name"]]
         r["launches_viz"] = viz[r["name"]]
         r["launches_mesh"] = fleet_mesh[r["name"]]
+        r["launches_tools"] = tools[r["name"]]
+        # its device ms a launch in phase 6's profiled frame, or None
+        r["path_device_ms"] = slam_stats["in_path"].get(r["name"])
     log(f"sharded step launches on the 2-slot mesh: {step_mesh}")
     keys = ("name", "route", "source", "replaces", "path", "launches",
-            "launches_heat", "launches_viz", "launches_mesh") + ROW_KEYS[1:]
+            "launches_heat", "launches_viz", "launches_mesh",
+            "launches_tools", "path_device_ms") + ROW_KEYS[1:]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(f"card: {smi}")

@@ -7,7 +7,9 @@ nothing of it and nothing of JAX.  Ported: the learned frontend
 with loop closing, the online mode and multi-stream serving
 (`slam.fleet.StreamFleet`), the batch evaluation (`evaluate`), SuperPoint
 training (`train.superpoint_train`), the viewer (`viz`: debug dumps and the
-live HTTP viewer) and the stream mesh (`parallel.mesh`), with the seven
+live HTTP viewer), the stream mesh (`parallel.mesh`) and the user tools
+(`scripts`: the NetVLAD codebook fit, checkpoint validation, the VLAD
+statistics, the degenerate replay, the accuracy sweep), with the seven
 TPU kernels as hand-written CUDA kernels in `csrc/` (built on first use by
 `ops/_build.py`).
 Entry points run on the card unless the caller passes `device="cpu"`.

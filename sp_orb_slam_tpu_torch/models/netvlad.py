@@ -88,15 +88,22 @@ class NetVLAD(nn.Module):
         self.residual = float(params["residual"])
 
     def forward(self, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        cent = self.centroids
         with full_f32():
-            logits = self.alpha * (desc @ cent.T)                # (..., K, C)
-            assign = torch.softmax(logits, -1) * valid[..., None].to(
-                logits.dtype)
-            vlad = (assign.transpose(-1, -2) @ desc
-                    - self.residual * assign.sum(-2)[..., None] * cent)
-            vlad = vlad / vlad.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-            v = vlad.flatten(-2)
-            v = v / v.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+            v = aggregate(desc, valid, self.centroids, self.alpha,
+                          self.residual)
             out = (v - self.mean) @ self.proj
         return out / out.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def aggregate(desc: torch.Tensor, valid: torch.Tensor, cent: torch.Tensor,
+              alpha: float, residual: float) -> torch.Tensor:
+    """(..., K, D) descriptors + (..., K) validity -> (..., C*D) unit VLAD
+    vectors before the projection (the module docstring's first four
+    lines), in the caller's precision."""
+    logits = alpha * (desc @ cent.T)                             # (..., K, C)
+    assign = torch.softmax(logits, -1) * valid[..., None].to(logits.dtype)
+    vlad = (assign.transpose(-1, -2) @ desc
+            - residual * assign.sum(-2)[..., None] * cent)
+    vlad = vlad / vlad.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    v = vlad.flatten(-2)
+    return v / v.norm(dim=-1, keepdim=True).clamp_min(1e-12)

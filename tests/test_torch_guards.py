@@ -2,6 +2,7 @@
 entry points and kernel wrappers never fall back to the CPU for a tensor
 or device that is not on the CPU."""
 
+import importlib
 import importlib.util
 import os
 import re
@@ -54,6 +55,12 @@ import sp_orb_slam_tpu_torch.train.superpoint_train
 import sp_orb_slam_tpu_torch.viz, sp_orb_slam_tpu_torch.viz.frame_drawer
 import sp_orb_slam_tpu_torch.viz.map_drawer, sp_orb_slam_tpu_torch.viz.live
 import sp_orb_slam_tpu_torch.parallel, sp_orb_slam_tpu_torch.parallel.mesh
+import sp_orb_slam_tpu_torch.scripts, sp_orb_slam_tpu_torch.scripts._rail
+import sp_orb_slam_tpu_torch.scripts.fit_vlad_centroids
+import sp_orb_slam_tpu_torch.scripts.validate_weights
+import sp_orb_slam_tpu_torch.scripts.vlad_rendered_stats
+import sp_orb_slam_tpu_torch.scripts.replay_degenerate
+import sp_orb_slam_tpu_torch.scripts.accuracy_sweep
 
 def banned(name):
     # the port's own name starts with "sp_orb_slam_tpu": match the JAX
@@ -77,7 +84,10 @@ def test_port_imports_no_jax():
                 "optim.sim3", "models.netvlad", "slam.loop_closing",
                 "io.dataset", "io.native_loader", "eval.batch",
                 "evaluate", "train.superpoint_train", "viz.frame_drawer",
-                "viz.map_drawer", "viz.live", "parallel.mesh"):
+                "viz.map_drawer", "viz.live", "parallel.mesh",
+                "scripts._rail", "scripts.fit_vlad_centroids",
+                "scripts.validate_weights", "scripts.vlad_rendered_stats",
+                "scripts.replay_degenerate", "scripts.accuracy_sweep"):
         assert f"sp_orb_slam_tpu_torch.{mod}" in out[1], mod
 
 
@@ -145,6 +155,19 @@ def test_mesh_and_viewer_entry_points_default_to_the_card(entry):
             "viz_system": lambda: System(Config()).set_debug_dir(None)}
     with pytest.raises((RuntimeError, ValueError), match="CUDA device"):
         call[entry]()
+
+
+@pytest.mark.parametrize("tool", ["fit_vlad_centroids", "validate_weights",
+                                  "vlad_rendered_stats", "replay_degenerate",
+                                  "accuracy_sweep"])
+def test_tools_default_to_the_card(tool):
+    """Every tool of sp_orb_slam_tpu_torch/scripts/ runs on the card unless
+    given --device cpu, and raises without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the no-card path")
+    module = importlib.import_module(f"sp_orb_slam_tpu_torch.scripts.{tool}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main([])
 
 
 def _loop_config():
