@@ -17,7 +17,14 @@ only, for the named kernels or all seven, printing the kernel rows and no
    inputs (pair1 also at the fleet's B=8, with its persistent grid
    checked; match also at B=1), then CUDA-event times of the kernel (its
    own pair of events around each call), its plain version and, where one
-   PyTorch call computes the same function, that call; the kernel's device
+   PyTorch call computes the same function, that call (desc_sparse, which
+   samples the raw convDb map, casts and normalises the corner rows and
+   zeroes invalid slots: checked in bfloat16 and float32 at B=32 and in
+   float32 at B=1 on a raw map with a valid prefix of each image's slots,
+   and on a unit map with every slot valid against `sample_descriptors`,
+   timed in both types at B=32 beside the library composite
+   where(valid, normalize(grid_sample(normalize(raw)))), with its
+   registers and spill bytes, 0 spills required); the kernel's device
    time alone (torch.profiler's device events) and its host µs a call
    (each call waited for); every one of these with L2 flushed before each
    call (128 MB written outside the timed window), and no time may read
@@ -477,12 +484,6 @@ def check_bounds(rows):
         raise AssertionError(f"kernel times under their bounds: {under}")
 
 
-def unit_rows(x):
-    import torch
-
-    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
-
-
 SPLIT_ITERS = (0, 1, 16)  # rounds of the NMS / cov fixed points timed apart
 
 
@@ -528,20 +529,29 @@ def pair_inputs(state, gen, dev):
     return images, w, library, bound
 
 
-def ptxas_report(log_text, kernel):
-    """(registers, spill store bytes, spill load bytes) of the entry
-    function whose mangled name holds `kernel`, from nvcc's -Xptxas -v."""
-    regs = stores = loads = None
-    mine = False
+def ptxas_entries(log_text, kernel):
+    """{entry function: [registers, spill store bytes, spill load bytes]}
+    of each entry function whose mangled name holds `kernel`, from nvcc's
+    -Xptxas -v."""
+    found, mine = {}, None
     for line in log_text.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
-            mine = kernel in line
+            entry = line.split("'")[1] if "'" in line else line.split()[-1]
+            mine = (found.setdefault(entry, [None, None, None])
+                    if kernel in entry else None)
         elif mine and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
                                       r"bytes spill loads", line)):
-            stores, loads = int(m[1]), int(m[2])
+            mine[1], mine[2] = int(m[1]), int(m[2])
         elif mine and (m := re.search(r"Used (\d+) registers", line)):
-            regs = int(m[1])
-    return regs, stores, loads
+            mine[0] = int(m[1])
+    return found
+
+
+def ptxas_report(log_text, kernel):
+    """(registers, spill store bytes, spill load bytes) of the one entry
+    function whose mangled name holds `kernel` (all None without one)."""
+    entries = list(ptxas_entries(log_text, kernel).values())
+    return tuple(entries[0]) if len(entries) == 1 else (None, None, None)
 
 
 PAIR_BATCHES = (B, 8, 2, 1)  # the step, the fleet, pair1t's path, one image
@@ -835,6 +845,7 @@ def match_disagreements(args, m12_k, m12_p, window=100, ratio=0.9):
 def check_match(gen, dev):
     import torch
 
+    from sp_orb_slam_tpu_torch.models.superpoint import unit_rows
     from sp_orb_slam_tpu_torch.ops import cuda_match
     from sp_orb_slam_tpu_torch.ops.matching import init_match
     from sp_orb_slam_tpu_torch.utils.precision import full_f32
@@ -914,69 +925,146 @@ def check_match(gen, dev):
 def _unit_coarse(gen, dev):
     import torch
 
+    from sp_orb_slam_tpu_torch.models.superpoint import unit_rows
+
     return unit_rows(torch.randn((B, H // 8, W // 8, 256), generator=gen,
                                  device=dev))
 
 
-def check_desc_sparse(gen, dev):
+# valid slots an image, as the frontend's counts run: up to its cap of
+# num_features + 1 = 801 (sp_extractor.cpp:210-213)
+DESC_VALID = (700, 801)
+
+
+def check_desc_sparse(gen, dev, build_logs):
+    """The fused sampler (the raw convDb map to masked unit descriptors)
+    against its plain version on a seeded raw map whose rows are not unit,
+    K=896 keypoints inside the NMS border and a valid prefix of each
+    image's slots, DESC_VALID long, as the extractor emits them: bfloat16
+    and float32 at B=32, float32 at the SLAM path's B=1 (1e-5, finite,
+    invalid rows exactly 0); and on a unit map with every slot valid
+    against `sample_descriptors`, the TPU kernel's function.  Logs each
+    instantiation's registers and spill bytes (0 spills required).  The
+    row is float32 (B=32, and B=1 at its path); the bfloat16 times at
+    B=32, the step's, are logged beside it and held to their bound.  The
+    bound counts what this data needs: the distinct raw rows the valid
+    slots' corners touch, 9 B of uv and valid and 1 KiB out a slot.  The
+    library yardstick is the same function as PyTorch calls:
+    where(valid, normalize(grid_sample(normalize(raw.float())))), at B=32
+    in both types and at B=1."""
     import torch
     import torch.nn.functional as F
 
     from sp_orb_slam_tpu_torch.models.superpoint import sample_descriptors
     from sp_orb_slam_tpu_torch.ops import cuda_desc
 
+    entries = ptxas_entries(build_logs.get("desc_sparse", ""),
+                            "desc_sparse_kernel")
+    for entry, (regs, stores, loads) in entries.items():
+        log(f"desc_sparse {entry}: {regs} registers, {stores} bytes spill "
+            f"stores, {loads} bytes spill loads")
+    if len(entries) != 2 or any(r is None or st or ld
+                                for r, st, ld in entries.values()):
+        raise AssertionError("desc_sparse kernel: no ptxas report for its "
+                             "two instantiations, or spills")
     hc, wc = H // 8, W // 8
-    coarse = _unit_coarse(gen, dev)
+    scale = torch.rand((B, hc, wc, 1), generator=gen, device=dev) * 8 + 0.5
+    raw32 = torch.randn((B, hc, wc, 256), generator=gen, device=dev) * scale
+    raws = {"f32": raw32, "bf16": raw32.to(torch.bfloat16)}
     # keypoints inside the NMS border, as the extractor emits them
     uv = torch.stack([8 + torch.rand((B, K), generator=gen, device=dev)
                       * (W - 16),
                       8 + torch.rand((B, K), generator=gen, device=dev)
                       * (H - 16)], -1).contiguous()
-    got = cuda_desc.sample_descriptors_sparse(coarse, uv, (H, W))
-    want = sample_descriptors(coarse, uv, (H, W))
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    log(f"desc_sparse: max_abs_err {err:.3e} (tolerance 1e-5)")
+    n_valid = torch.randint(DESC_VALID[0], DESC_VALID[1] + 1, (B, 1),
+                            generator=gen, device=dev)
+    valid = torch.arange(K, device=dev)[None, :] < n_valid
+
+    def kernel(dt, nb):
+        return cuda_desc.sample_descriptors_sparse(
+            raws[dt][:nb], uv[:nb], valid[:nb], (H, W))
+
+    def plain(dt, nb):
+        return cuda_desc.sample_descriptors_sparse_plain(
+            raws[dt][:nb], uv[:nb], valid[:nb], (H, W))
+
+    errs = []
+    for dt, nb in (("bf16", B), ("f32", B), ("f32", 1)):
+        got, want = kernel(dt, nb), plain(dt, nb)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        zero = bool((got[~valid[:nb]] == 0).all())
+        log(f"desc_sparse {dt} B={nb}: max_abs_err {err:.3e} (tolerance "
+            f"1e-5), invalid rows zero {zero}, valid slots "
+            f"{int(valid[:nb].sum())} of {nb * K}")
+        if err > 1e-5 or not zero or not torch.isfinite(got).all():
+            raise AssertionError("desc_sparse disagrees with its plain "
+                                 "version")
+        errs.append(err)
+    unit = _unit_coarse(gen, dev)
+    got = cuda_desc.sample_descriptors_sparse(
+        unit, uv, torch.ones_like(valid), (H, W))
+    err = float((got - sample_descriptors(unit, uv, (H, W))).abs().max())
+    log(f"desc_sparse on a unit map, every slot valid, against "
+        f"sample_descriptors: max_abs_err {err:.3e} (tolerance 1e-5)")
     if err > 1e-5 or not torch.isfinite(got).all():
-        raise AssertionError("desc_sparse disagrees with its plain version")
-    # bytes this data needs: each distinct corner row once, uv, the output
+        raise AssertionError("desc_sparse disagrees with sample_descriptors")
+    errs.append(err)
+
+    # bytes this data needs: each distinct row the valid slots' corners
+    # touch once, uv and valid, the output
     gx = (uv[..., 0] * (wc - 1) / W).floor().long().clamp(0, wc - 2)
     gy = (uv[..., 1] * (hc - 1) / H).floor().long().clamp(0, hc - 2)
     r0 = gy * wc + gx
     rows = torch.stack([r0, r0 + 1, r0 + wc, r0 + wc + 1], -1)
     rows = rows + torch.arange(B, device=dev)[:, None, None] * hc * wc
 
-    def bound(nb):
-        n_rows = int(torch.unique(rows[:nb]).numel())
-        nbytes = n_rows * 256 * 4 + nb * K * 8 + nb * K * 256 * 4
-        flops = nb * K * 256 * 12.0  # 4 FMAs, the square-sum and the scale
-        log(f"desc_sparse B={nb}: {n_rows} distinct corner rows of "
-            f"{nb * hc * wc}, {nbytes / 1e6:.1f} MB")
+    def bound(nb, elem=4):
+        n_rows = int(torch.unique(rows[:nb][valid[:nb]]).numel())
+        nbytes = n_rows * 256 * elem + nb * K * (8 + 1 + 256 * 4)
+        # a valid slot: four corners' squares and weighted sums, then the
+        # sum's square and scale
+        flops = int(valid[:nb].sum()) * 256 * (4 * 4 + 3.0)
+        log(f"desc_sparse B={nb}, {elem} B an element: {n_rows} distinct "
+            f"corner rows of {nb * hc * wc}, {nbytes / 1e6:.2f} MB")
         return bound_ms(nbytes, flops, H100_F32)
 
-    bms, by = bound(B)
-    nchw = coarse.permute(0, 3, 1, 2)
     grid = (uv / torch.tensor([W / 2, H / 2], device=dev) - 1)[:, None]
 
-    def library():  # the reference's grid_sample + normalize (yardstick)
-        return F.normalize(F.grid_sample(nchw, grid, align_corners=True),
-                           dim=1)
+    def library(dt, nb):  # the same function as PyTorch calls (yardstick)
+        nchw = raws[dt][:nb].permute(0, 3, 1, 2)
+        mask = valid[:nb, None, None, :]
+        return lambda: torch.where(mask, F.normalize(F.grid_sample(
+            F.normalize(nchw.float(), dim=1), grid[:nb],
+            align_corners=True), dim=1), 0.0)
 
-    lib_err = float((library()[:, :, 0].permute(0, 2, 1) - want).abs().max())
-    log(f"desc_sparse: grid_sample + normalize vs plain {lib_err:.3e}")
+    lib_err = float((library("f32", B)()[:, :, 0].transpose(1, 2)
+                     - plain("f32", B)).abs().max())
+    log(f"desc_sparse: the library composite vs plain {lib_err:.3e}")
+    lib_ms = {(dt, nb): flushed_ms(library(dt, nb), iters=20)
+              for dt, nb in (("f32", B), ("bf16", B), ("f32", 1))}
+    bms, by = bound(B)
     row = dict(
         name="desc_sparse", route="cuda",
         source="sp_orb_slam_tpu_torch/csrc/desc_sparse.cu",
-        replaces="sp_orb_slam_tpu/ops/pallas_desc.py:272", max_abs_err=err,
-        **kernel_times(lambda: cuda_desc.sample_descriptors_sparse(
-            coarse, uv, (H, W)), 50),
-        plain_ms=flushed_ms(lambda: sample_descriptors(coarse, uv, (H, W)),
-                            iters=10),
-        bound_ms=bms, bound_by=by,
-        library_ms=flushed_ms(library, iters=20))
-    return at_launch_shape(
-        row, 1, lambda nb: cuda_desc.sample_descriptors_sparse(
-            coarse[:nb], uv[:nb], (H, W)), bound, iters=50)
+        replaces="sp_orb_slam_tpu/ops/pallas_desc.py:272",
+        max_abs_err=max(errs),
+        **kernel_times(lambda: kernel("f32", B), 50),
+        plain_ms=flushed_ms(lambda: plain("f32", B), iters=10),
+        bound_ms=bms, bound_by=by, library_ms=lib_ms["f32", B])
+    # the step's type: bfloat16 at B=32, held to its own bound
+    bf = kernel_times(lambda: kernel("bf16", B), 50)
+    bf_bound, bf_by = bound(B, 2)
+    log(f"desc_sparse bf16 B={B}: ms {bf['ms']:.4f}, dev ms "
+        f"{bf['device_ms']:.4f}, host us {bf['host_us']:.1f}, bound "
+        f"{bf_bound:.5f} ({bf_by}), plain ms "
+        f"{flushed_ms(lambda: plain('bf16', B), iters=10):.4f}, library "
+        f"ms {lib_ms['bf16', B]:.4f}")
+    if min(bf["ms"], bf["device_ms"]) < bf_bound:
+        raise AssertionError("desc_sparse bf16 times under their bound")
+    at_launch_shape(row, 1, lambda nb: kernel("f32", nb), bound, iters=50)
+    log(f"desc_sparse f32 B=1: library ms {lib_ms['f32', 1]:.4f}")
+    return row
 
 
 def check_desc_dense(gen, dev):
@@ -1552,7 +1640,7 @@ def make_step(state, dev):
 
     from sp_orb_slam_tpu_torch.config import Config
     from sp_orb_slam_tpu_torch.extractor import extract
-    from sp_orb_slam_tpu_torch.models.superpoint import SuperPoint
+    from sp_orb_slam_tpu_torch.models.superpoint import SuperPoint, unit_rows
     from sp_orb_slam_tpu_torch.ops import cuda_match
 
     cfg = Config()
@@ -3545,7 +3633,6 @@ CAPTURE_CAP = 32         # calls kept a kernel and input shape
 def tool_kernels():
     """(name, module, wrapper, plain version) of each kernel the tools
     launch; the plain version takes the wrapper's arguments."""
-    from sp_orb_slam_tpu_torch.models.superpoint import sample_descriptors
     from sp_orb_slam_tpu_torch.ops import (cuda_cov, cuda_desc, cuda_match,
                                            cuda_nms)
     from sp_orb_slam_tpu_torch.ops.covariance import keypoint_covariance
@@ -3555,7 +3642,7 @@ def tool_kernels():
     return (("nms", cuda_nms, "batched_grid_nms", greedy_grid_nms),
             ("cov", cuda_cov, "batched_covariance", keypoint_covariance),
             ("desc_sparse", cuda_desc, "sample_descriptors_sparse",
-             sample_descriptors),
+             cuda_desc.sample_descriptors_sparse_plain),
             ("match", cuda_match, "match_init_batch", init_match))
 
 
@@ -3605,8 +3692,8 @@ def _disagreement(name, plain, args, kw, got):
     """(measure, within tolerance) of one captured call against the plain
     version on its inputs, with phase 2's tolerances: NMS cells differing
     (none); cov's cov2 max_abs_err (1e-5, the response equal);
-    desc_sparse's max_abs_err (1e-5, finite); match rows differing (near-
-    ties only)."""
+    desc_sparse's max_abs_err (1e-5, finite, invalid rows exactly 0);
+    match rows differing (near-ties only)."""
     import torch
 
     want = plain(*args, **kw)
@@ -3618,7 +3705,8 @@ def _disagreement(name, plain, args, kw, got):
         return err, err <= 1e-5 and bool(torch.equal(got[2], want[2]))
     if name == "desc_sparse":
         err = float((got - want).abs().max())
-        return err, err <= 1e-5 and bool(torch.isfinite(got).all())
+        return err, (err <= 1e-5 and bool(torch.isfinite(got).all())
+                     and bool((got[~args[2]] == 0).all()))
     bad, excused = match_disagreements(args, got[0], want[0],
                                        kw.get("window", 100),
                                        kw.get("ratio", 0.9))
@@ -3898,7 +3986,7 @@ def main(argv) -> int:
                   nms=lambda: check_nms(gen, dev),
                   cov=lambda: check_cov(gen, dev),
                   match=lambda: check_match(gen, dev),
-                  desc_sparse=lambda: check_desc_sparse(gen, dev),
+                  desc_sparse=lambda: check_desc_sparse(gen, dev, logs),
                   desc_dense=lambda: check_desc_dense(gen, dev))
     rows = [checks[k]() for k in CHECKS if k in names]
     if {"nms", "cov"} & set(names):

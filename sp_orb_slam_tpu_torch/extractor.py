@@ -75,10 +75,13 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
     pair1t on the H100 at B=1, 8 and 32 (PERF.md), when bfloat16,
     H % 8 == 0 and W % 2 == 0) and the plain versions on the CPU.
     `desc_method`: "gather" (plain 4-corner sampling at each keypoint),
-    "pallas_sparse" (the sparse sampling kernel), "dense" (plain 9-tap
-    stencil at every cell's candidate, then each keypoint's own cell row),
-    "pallas" (the dense kernel, then the row pick); "auto" is
-    "pallas_sparse" on a CUDA device and "gather" on the CPU.  All four
+    "pallas_sparse" (the sparse sampling kernel, on the raw convDb map:
+    the forward's `raw_desc`; the kernel casts and normalises the corner
+    rows it reads and zeroes invalid slots, so no pass over the whole map
+    or the output runs outside it; its plain version on the CPU), "dense"
+    (plain 9-tap stencil at every cell's candidate, then each keypoint's
+    own cell row), "pallas" (the dense kernel, then the row pick); "auto"
+    is "pallas_sparse" on a CUDA device and "gather" on the CPU.  All four
     agree to float32 rounding.  `emission` ("sort" | "scatter") and
     `heat_shuffle` ("slices" | "transpose") name the JAX package's XLA
     lowerings of the raster emission and the heat map's pixel shuffle,
@@ -111,7 +114,8 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
     out = model(images, conf_thresh=conf_thresh, conv_packing=conv_packing,
                 with_heat=with_heat,
                 with_heat_inv=with_heat_inv or cov_method != "none",
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype,
+                raw_desc=desc_method == "pallas_sparse")
 
     if nms_method == "cuda":
         alive = cuda_nms.batched_grid_nms(out.score, out.cand_uv,
@@ -144,11 +148,14 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
         rows = (cy * wc + cx)[..., None].expand(-1, -1, dense.shape[-1])
         desc = torch.gather(dense.reshape(B, hc * wc, -1), 1, rows)
     elif desc_method == "pallas_sparse":
+        # the raw map: the kernel casts, normalises and masks as it reads
         desc = cuda_desc.sample_descriptors_sparse(
-            out.coarse_desc.contiguous(), kps.uv.contiguous(), (H, W))
+            out.coarse_desc, kps.uv.contiguous(), kps.valid.contiguous(),
+            (H, W))
     else:
         desc = sample_descriptors(out.coarse_desc, kps.uv, (H, W))
-    desc = torch.where(kps.valid[..., None], desc, 0.0)
+    if desc_method != "pallas_sparse":
+        desc = torch.where(kps.valid[..., None], desc, 0.0)
 
     if cov_method == "cuda":
         cov2, cov2_inv, response = cuda_cov.batched_covariance(

@@ -64,7 +64,9 @@ class FrontendOut(NamedTuple):
     score: torch.Tensor        # (B, hc, wc)  per-cell max probability
     cand_uv: torch.Tensor      # (B, hc, wc, 2) int32 in-cell argmax (u, v)
     cand_valid: torch.Tensor   # (B, hc, wc)  score >= conf_thresh
-    coarse_desc: torch.Tensor  # (B, hc, wc, 256) L2-normalised descriptors
+    # (B, hc, wc, 256) L2-normalised descriptors; with raw_desc=True the
+    # raw convDb output in the compute dtype (a contiguous view)
+    coarse_desc: torch.Tensor
     heat: torch.Tensor | None      # (B, H, W) normalised "coldness" in [0, 1]
     heat_inv: torch.Tensor | None  # (B, H, W) 1 - heat (peaks at keypoints)
 
@@ -149,7 +151,8 @@ class SuperPoint(nn.Module):
     def forward(self, images: torch.Tensor, *, conf_thresh: float = 0.007,
                 cell: int = 8, conv_packing: str = "none",
                 with_heat: bool = True, with_heat_inv: bool = True,
-                compute_dtype: torch.dtype = torch.float32) -> FrontendOut:
+                compute_dtype: torch.dtype = torch.float32,
+                raw_desc: bool = False) -> FrontendOut:
         """images (B, H, W) float32 in [0, 1].
 
         The conv stack runs in `compute_dtype` (bfloat16 for speed; float32
@@ -159,13 +162,18 @@ class SuperPoint(nn.Module):
         fused kernel (bfloat16 only; two designs of the same function,
         ops/cuda_pair1t.py and ops/cuda_pair1.py); "s2d", "s2d2" and "s2d3",
         the JAX package's space-to-depth lowerings of the same function,
-        run as "none"."""
+        run as "none".  `raw_desc` returns convDb's output as it is
+        written (channels-last, so its NHWC view is contiguous) in place of
+        the unit `coarse_desc`, for the fused sampler
+        (ops/cuda_desc.py `sample_descriptors_sparse`), which casts and
+        normalises only the rows it reads."""
         with full_f32():
             return self._forward(images, conf_thresh, cell, conv_packing,
-                                 with_heat, with_heat_inv, compute_dtype)
+                                 with_heat, with_heat_inv, compute_dtype,
+                                 raw_desc)
 
     def _forward(self, images, conf_thresh, cell, conv_packing, with_heat,
-                 with_heat_inv, compute_dtype) -> FrontendOut:
+                 with_heat_inv, compute_dtype, raw_desc) -> FrontendOut:
         B, H, W = images.shape
         hc, wc = H // cell, W // cell
         if conv_packing in ("pair1t", "pair1"):
@@ -189,9 +197,9 @@ class SuperPoint(nn.Module):
         semi = self._conv(self._conv(x, "convPa"), "convPb", relu=False)
         semi = semi.float().permute(0, 2, 3, 1)           # (B, hc, wc, 65)
         coarse = self._conv(self._conv(x, "convDa"), "convDb", relu=False)
-        coarse = coarse.float().permute(0, 2, 3, 1)       # (B, hc, wc, 256)
-        coarse = coarse / torch.linalg.vector_norm(coarse, dim=-1,
-                                                   keepdim=True)
+        coarse = coarse.permute(0, 2, 3, 1)               # (B, hc, wc, 256)
+        if not raw_desc:
+            coarse = unit_rows(coarse.float())
 
         # log-sum-exp head (the JAX package's round-4 form): softmax is
         # monotone in the logits, so its max / argmax / dustbin / clipped
@@ -231,6 +239,12 @@ class SuperPoint(nn.Module):
                 heat = 1.0 - heat_inv
         return FrontendOut(semi_dust, dense_dust, score, cand_uv, cand_valid,
                            coarse, heat, heat_inv)
+
+
+def unit_rows(x: torch.Tensor) -> torch.Tensor:
+    """Each row of the last axis divided by its L2 norm (the descriptor
+    head's normalisation; a zero row gives NaN, as in the JAX package)."""
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
 
 def sample_descriptors(coarse: torch.Tensor, uv: torch.Tensor,

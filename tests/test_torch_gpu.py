@@ -385,16 +385,37 @@ def _coarse(gen, cuda, B, hc, wc):
     return c / c.norm(dim=-1, keepdim=True)
 
 
-@pytest.mark.parametrize("B,H,W,K", [(2, 64, 96, 16), (32, 480, 752, 896)])
-def test_desc_sparse_kernel(cuda, gen, B, H, W, K):
-    coarse = _coarse(gen, cuda, B, H // 8, W // 8)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,K", [(2, 64, 96, 16), (1, 480, 752, 896),
+                                     (32, 480, 752, 896)])
+def test_desc_sparse_kernel(cuda, gen, B, H, W, K, dtype):
+    """The fused sampler against its plain version on a raw map whose rows
+    are not unit (1e-5, invalid rows exactly 0, one launch a call), with a
+    valid prefix of each image's slots and keypoints anywhere in the image;
+    and on a float32 unit map with every slot valid against
+    `sample_descriptors`, the TPU kernel's function."""
+    hc, wc = H // 8, W // 8
+    raw = (torch.randn((B, hc, wc, 256), generator=gen, device=cuda)
+           * torch.rand((B, hc, wc, 1), generator=gen, device=cuda) * 8
+           ).to(dtype)
     uv = torch.stack([torch.rand((B, K), generator=gen, device=cuda) * (W - 1),
                       torch.rand((B, K), generator=gen, device=cuda)
                       * (H - 1)], -1).contiguous()
-    n = _build.LAUNCHES["desc_sparse"]
-    got = cuda_desc.sample_descriptors_sparse(coarse, uv, (H, W))
-    want = sample_descriptors(coarse, uv, (H, W))
-    assert _build.LAUNCHES["desc_sparse"] == n + 1
+    n = torch.randint(K // 2, K + 1, (B, 1), generator=gen, device=cuda)
+    valid = torch.arange(K, device=cuda)[None, :] < n
+    before = _build.LAUNCHES["desc_sparse"]
+    got = cuda_desc.sample_descriptors_sparse(raw, uv, valid, (H, W))
+    want = cuda_desc.sample_descriptors_sparse_plain(raw, uv, valid, (H, W))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["desc_sparse"] == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-5
+    assert (got[~valid] == 0).all()
+    unit = _coarse(gen, cuda, B, hc, wc)  # float32, the TPU kernel's input
+    every = torch.ones((B, K), dtype=torch.bool, device=cuda)
+    got = cuda_desc.sample_descriptors_sparse(unit, uv, every, (H, W))
+    want = sample_descriptors(unit, uv, (H, W))
+    assert _build.LAUNCHES["desc_sparse"] == before + 2
     assert (got - want).abs().max() <= 1e-5
 
 

@@ -339,15 +339,37 @@ def _meta(*shape, dtype=torch.float32):
         _meta(2, 16, 256), _meta(2, 16, dtype=torch.bool), _meta(2, 16, 2),
         _meta(2, 16, 256), _meta(2, 16, 2), _meta(2, 16, dtype=torch.bool)),
     lambda: cuda_desc.sample_descriptors_sparse(
-        _meta(2, 4, 6, 256), _meta(2, 16, 2), (32, 48)),
+        _meta(2, 4, 6, 256), _meta(2, 16, 2), _meta(2, 16, dtype=torch.bool),
+        (32, 48)),
+    lambda: cuda_desc.sample_descriptors_sparse(
+        _meta(2, 4, 6, 256, dtype=torch.bfloat16), _meta(2, 16, 2),
+        _meta(2, 16, dtype=torch.bool), (32, 48)),
     lambda: cuda_desc.sample_descriptors_dense_batch(
         _meta(2, 4, 6, 256), _meta(2, 4, 6, 2, dtype=torch.int32), (32, 48)),
 ], ids=["pair1t", "pair1", "nms", "cov", "match", "desc_sparse",
-        "desc_dense"])
+        "desc_sparse_bf16", "desc_dense"])
 def test_wrappers_never_fall_back(call):
     before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         call()
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("raw,match", [
+    (_meta(2, 4, 6, 256, dtype=torch.float16), "float32 or bfloat16"),
+    (_meta(2, 4, 6, 256, dtype=torch.float64), "float32 or bfloat16"),
+    (_meta(2, 4, 6, 128), "needs a"),
+    (_meta(2, 1, 6, 256), "needs a"),
+    (_meta(4, 6, 256), "needs a"),
+], ids=["float16", "float64", "width", "one_row", "no_batch"])
+def test_desc_sparse_refuses_what_the_kernel_does_not_take(raw, match):
+    """Off the CPU the sparse sampler takes a (B, hc, wc, 256) float32 or
+    bfloat16 map with hc, wc >= 2 and raises on anything else, before any
+    launch."""
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        cuda_desc.sample_descriptors_sparse(
+            raw, _meta(2, 16, 2), _meta(2, 16, dtype=torch.bool), (32, 48))
     assert _build.LAUNCHES == before
 
 
@@ -411,6 +433,31 @@ def test_profile_groups_follow_the_sources(source):
     for name in names:
         shown = f"void (anonymous namespace)::{name}<8, 8>(float const*)"
         assert smoke.group_of(shown) == source, name
+
+
+def test_ptxas_entries_reads_each_instantiation():
+    """chip_smoke's reading of nvcc's -Xptxas -v: registers and spill
+    bytes of every entry function whose name holds the kernel's, here a
+    template's two instantiations, and none of another kernel."""
+    log = """ptxas info    : Compiling entry function '_Z8other_kPf' for 'sm_90a'
+ptxas info    : Function properties for _Z8other_kPf
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, 380 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z18desc_sparse_kernelIfEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _Z18desc_sparse_kernelIfEvPKT_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 4096 bytes smem, 424 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z18desc_sparse_kernelItEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _Z18desc_sparse_kernelItEvPKT_
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 38 registers, 4096 bytes smem, 424 bytes cmem[0]
+"""
+    smoke = _chip_smoke()
+    assert smoke.ptxas_entries(log, "desc_sparse_kernel") == {
+        "_Z18desc_sparse_kernelIfEvPKT_": [40, 0, 0],
+        "_Z18desc_sparse_kernelItEvPKT_": [38, 4, 4]}
+    assert smoke.ptxas_report(log, "other_k") == (255, 8, 8)
+    assert smoke.ptxas_report(log, "desc_sparse_kernel") == (None,) * 3
 
 
 @pytest.mark.parametrize("B,M,N,tile", [
