@@ -1790,17 +1790,9 @@ IN_PATH = (("nms", "nms_kernel"), ("cov", "cov_kernel"),
            ("desc_sparse", "desc_sparse_kernel"))
 
 
-def keep_samples(timer):
-    """Wrap `timer.add` to keep every sample in ms; returns the dict."""
-    spans = {}
-    add = timer.add
-
-    def add_and_keep(tag, dt):
-        spans.setdefault(tag, []).append(dt * 1e3)
-        add(tag, dt)
-
-    timer.add = add_and_keep
-    return spans
+def timer_ms(timer):
+    """{tag: every sample the `Timer` kept, in ms}."""
+    return {tag: [dt * 1e3 for dt in v] for tag, v in timer.samples().items()}
 
 
 def time_process(sys_):
@@ -1841,7 +1833,6 @@ def slam_phase(state, dev, smi, frames):
     cfg = Config()
     ds = RenderedDataset(cfg, n_frames=SLAM_FRAMES, seed=5, noise_seed=0)
     sys_ = System(cfg, params=state, device=dev)
-    spans = keep_samples(sys_.timer)
     per_frame = time_process(sys_)
     n_timed = OFFLINE_FRAMES - PROFILE_FRAMES
     zero_launches()
@@ -1851,7 +1842,7 @@ def slam_phase(state, dev, smi, frames):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     pf = np.asarray(per_frame)
-    timed_spans = {k: np.asarray(v) for k, v in spans.items()}
+    timed_spans = {k: np.asarray(v) for k, v in timer_ms(sys_.timer).items()}
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1973,7 +1964,6 @@ def loop_phase(state, dev, smi, frames, ate_off):
                                         "vlad_rendered.npz")}})
     ds = RenderedDataset(cfg, n_frames=SLAM_FRAMES, seed=5, noise_seed=0)
     sys_ = System(cfg, params=state, device=dev)
-    spans = keep_samples(sys_.timer)
     process = sys_.process
     per_frame, events = [], []
 
@@ -1983,7 +1973,8 @@ def loop_phase(state, dev, smi, frames, ate_off):
         process(raw)
         per_frame.append((time.perf_counter() - t0) * 1e3)
         if sys_.looper.n_loops_closed > n0:
-            events.append((len(per_frame) - 1, spans["loop"][-1]))
+            events.append((len(per_frame) - 1,
+                           sys_.timer.tags["loop"].samples[-1] * 1e3))
 
     sys_.process = timed_process
     # the loop closer's stages, timed on the host by frame (each ends in a
@@ -2011,6 +2002,7 @@ def loop_phase(state, dev, smi, frames, ate_off):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches("SLAM + loop", SLAM_KERNELS)
+    spans = timer_ms(sys_.timer)
 
     rep = sys_.report()
     ts, poses = sys_.trajectory()
@@ -2409,7 +2401,6 @@ def fleet_phase(state, dev, smi, frames, gt, cfg=None):
     fleet.warmup()
     torch.cuda.synchronize()
     log(f"fleet: warmup {time.perf_counter() - t0:.2f} s")
-    spans = keep_samples(fleet.timer)
 
     def raws(k):
         return [frames[s][k] if k < lengths[i] else None
@@ -2426,7 +2417,7 @@ def fleet_phase(state, dev, smi, frames, gt, cfg=None):
         per_tick.append((time.perf_counter() - t1) * 1e3)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    timed_spans = {k: list(v) for k, v in spans.items()}
+    timed_spans = timer_ms(fleet.timer)
     per_stream = {tag: sum(s.timer.tags[tag].total for s in fleet.systems
                            if tag in s.timer.tags)
                   for tag in ("tracking/total", "mapping")}
@@ -2627,7 +2618,6 @@ def heat_phase(state, dev, smi, frames, slam_stats):
     ds = RenderedDataset(cfg, n_frames=SLAM_FRAMES, seed=5, noise_seed=0)
     sys_ = System(cfg, params=state, device=dev)
     seen = spy_stages(sys_.kernels)
-    spans = keep_samples(sys_.timer)
     per_frame = time_process(sys_)
     zero_launches()
     torch.cuda.synchronize()
@@ -2636,6 +2626,7 @@ def heat_phase(state, dev, smi, frames, slam_stats):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches("heat + epipolar SLAM", SLAM_KERNELS)
+    spans = timer_ms(sys_.timer)
 
     rep = sys_.report()
     ts, poses = sys_.trajectory()

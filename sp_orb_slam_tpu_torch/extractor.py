@@ -21,6 +21,7 @@ from sp_orb_slam_tpu_torch.models.superpoint import (
 from sp_orb_slam_tpu_torch.ops import cuda_cov, cuda_desc, cuda_nms
 from sp_orb_slam_tpu_torch.ops import covariance as cov_ops
 from sp_orb_slam_tpu_torch.ops import nms as nms_ops
+from sp_orb_slam_tpu_torch.utils.timing import span
 
 
 class Features(NamedTuple):
@@ -111,66 +112,74 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
         if value not in known:
             raise ValueError(f"unknown {name} {value!r}")
 
-    out = model(images, conf_thresh=conf_thresh, conv_packing=conv_packing,
-                with_heat=with_heat,
-                with_heat_inv=with_heat_inv or cov_method != "none",
-                compute_dtype=compute_dtype,
-                raw_desc=desc_method == "pallas_sparse")
+    with span("extract/forward"):
+        out = model(images, conf_thresh=conf_thresh,
+                    conv_packing=conv_packing, with_heat=with_heat,
+                    with_heat_inv=with_heat_inv or cov_method != "none",
+                    compute_dtype=compute_dtype,
+                    raw_desc=desc_method == "pallas_sparse")
 
-    if nms_method == "cuda":
-        alive = cuda_nms.batched_grid_nms(out.score, out.cand_uv,
-                                          out.cand_valid, dist=nms_dist,
-                                          iters=nms_iters)
-    elif nms_method == "xla":
-        alive = nms_ops.greedy_grid_nms(out.score, out.cand_uv,
-                                        out.cand_valid, dist=nms_dist,
-                                        iters=nms_iters)
-    else:
-        raise ValueError(f"unknown nms_method {nms_method!r}")
-    kps = nms_ops.select_keypoints(
-        out.score, out.cand_uv, out.cand_valid, num_features=num_features,
-        max_keypoints=max_keypoints, image_hw=(H, W), dist=nms_dist,
-        border=border, nms_iters=nms_iters, alive=alive)
+    with span("extract/nms"):
+        if nms_method == "cuda":
+            alive = cuda_nms.batched_grid_nms(out.score, out.cand_uv,
+                                              out.cand_valid, dist=nms_dist,
+                                              iters=nms_iters)
+        elif nms_method == "xla":
+            alive = nms_ops.greedy_grid_nms(out.score, out.cand_uv,
+                                            out.cand_valid, dist=nms_dist,
+                                            iters=nms_iters)
+        else:
+            raise ValueError(f"unknown nms_method {nms_method!r}")
+    with span("extract/select"):
+        kps = nms_ops.select_keypoints(
+            out.score, out.cand_uv, out.cand_valid,
+            num_features=num_features, max_keypoints=max_keypoints,
+            image_hw=(H, W), dist=nms_dist, border=border,
+            nms_iters=nms_iters, alive=alive)
 
-    if desc_method in ("dense", "pallas"):
-        # every cell's candidate, then each keypoint's own cell row (a
-        # keypoint's uv is its cell's candidate uv)
-        if desc_method == "pallas":
-            dense = cuda_desc.sample_descriptors_dense_batch(
-                out.coarse_desc.contiguous(), out.cand_uv.contiguous(),
+    with span("extract/desc"):
+        if desc_method in ("dense", "pallas"):
+            # every cell's candidate, then each keypoint's own cell row (a
+            # keypoint's uv is its cell's candidate uv)
+            if desc_method == "pallas":
+                dense = cuda_desc.sample_descriptors_dense_batch(
+                    out.coarse_desc.contiguous(), out.cand_uv.contiguous(),
+                    (H, W))
+            else:
+                dense = sample_descriptors_dense(out.coarse_desc,
+                                                 out.cand_uv, (H, W))
+            hc, wc = H // 8, W // 8
+            cy = (kps.uv[..., 1].long() // 8).clamp(0, hc - 1)
+            cx = (kps.uv[..., 0].long() // 8).clamp(0, wc - 1)
+            rows = (cy * wc + cx)[..., None].expand(-1, -1, dense.shape[-1])
+            desc = torch.gather(dense.reshape(B, hc * wc, -1), 1, rows)
+        elif desc_method == "pallas_sparse":
+            # the raw map: the kernel casts, normalises and masks as it
+            # reads
+            desc = cuda_desc.sample_descriptors_sparse(
+                out.coarse_desc, kps.uv.contiguous(), kps.valid.contiguous(),
                 (H, W))
         else:
-            dense = sample_descriptors_dense(out.coarse_desc, out.cand_uv,
-                                             (H, W))
-        hc, wc = H // 8, W // 8
-        cy = (kps.uv[..., 1].long() // 8).clamp(0, hc - 1)
-        cx = (kps.uv[..., 0].long() // 8).clamp(0, wc - 1)
-        rows = (cy * wc + cx)[..., None].expand(-1, -1, dense.shape[-1])
-        desc = torch.gather(dense.reshape(B, hc * wc, -1), 1, rows)
-    elif desc_method == "pallas_sparse":
-        # the raw map: the kernel casts, normalises and masks as it reads
-        desc = cuda_desc.sample_descriptors_sparse(
-            out.coarse_desc, kps.uv.contiguous(), kps.valid.contiguous(),
-            (H, W))
-    else:
-        desc = sample_descriptors(out.coarse_desc, kps.uv, (H, W))
-    if desc_method != "pallas_sparse":
-        desc = torch.where(kps.valid[..., None], desc, 0.0)
+            desc = sample_descriptors(out.coarse_desc, kps.uv, (H, W))
+        if desc_method != "pallas_sparse":
+            desc = torch.where(kps.valid[..., None], desc, 0.0)
 
-    if cov_method == "cuda":
-        cov2, cov2_inv, response = cuda_cov.batched_covariance(
-            out.heat_inv, kps.uv, kps.valid, radius=cov_radius,
-            iters=cov_iters)
-    elif cov_method == "windowed":
-        cov2, cov2_inv, response = cov_ops.keypoint_covariance(
-            out.heat_inv, kps.uv, kps.valid, radius=cov_radius,
-            iters=cov_iters)
-    elif cov_method == "dense":
-        cov2, cov2_inv, response = cov_ops.dense_covariance(
-            out.heat_inv, kps.occ_grid, kps.uv, kps.valid, iters=cov_iters)
-    else:  # "none": unit covariance, zero response
-        cov2 = cov2_inv = torch.ones(kps.uv.shape, device=images.device)
-        response = torch.zeros(kps.valid.shape, device=images.device)
+    with span("extract/cov"):
+        if cov_method == "cuda":
+            cov2, cov2_inv, response = cuda_cov.batched_covariance(
+                out.heat_inv, kps.uv, kps.valid, radius=cov_radius,
+                iters=cov_iters)
+        elif cov_method == "windowed":
+            cov2, cov2_inv, response = cov_ops.keypoint_covariance(
+                out.heat_inv, kps.uv, kps.valid, radius=cov_radius,
+                iters=cov_iters)
+        elif cov_method == "dense":
+            cov2, cov2_inv, response = cov_ops.dense_covariance(
+                out.heat_inv, kps.occ_grid, kps.uv, kps.valid,
+                iters=cov_iters)
+        else:  # "none": unit covariance, zero response
+            cov2 = cov2_inv = torch.ones(kps.uv.shape, device=images.device)
+            response = torch.zeros(kps.valid.shape, device=images.device)
 
     return Features(kps.uv, kps.score, response, kps.valid, desc, cov2,
                     cov2_inv, kps.occ_grid, out.dense_dust, out.semi_dust,
@@ -193,19 +202,23 @@ def make_extractor(cfg: Config, params, device: str | torch.device = "cuda"):
     dtype = torch.bfloat16 if ex.dtype == "bfloat16" else torch.float32
 
     def run(images) -> Features:
-        images = torch.as_tensor(images, dtype=torch.float32, device=dev)
-        with torch.inference_mode():
-            return extract(
-                model, images,
-                num_features=cfg.tracking.num_features,
-                max_keypoints=cfg.runtime.max_keypoints,
-                conf_thresh=ex.conf_thresh, nms_dist=ex.nms_dist,
-                border=ex.border, nms_iters=ex.nms_iters,
-                cov_radius=ex.cov_window, cov_iters=ex.cov_iters,
-                cov_method=ex.cov_method, nms_method=ex.nms_method,
-                desc_method=ex.desc_method, conv_packing=ex.conv_packing,
-                with_heat=(cfg.tracking.coarse_method == "heat"),
-                with_heat_inv=False,  # no production consumer
-                compute_dtype=dtype)
+        with span("extract"):
+            with span("extract/upload"):
+                images = torch.as_tensor(images, dtype=torch.float32,
+                                         device=dev)
+            with torch.inference_mode():
+                return extract(
+                    model, images,
+                    num_features=cfg.tracking.num_features,
+                    max_keypoints=cfg.runtime.max_keypoints,
+                    conf_thresh=ex.conf_thresh, nms_dist=ex.nms_dist,
+                    border=ex.border, nms_iters=ex.nms_iters,
+                    cov_radius=ex.cov_window, cov_iters=ex.cov_iters,
+                    cov_method=ex.cov_method, nms_method=ex.nms_method,
+                    desc_method=ex.desc_method,
+                    conv_packing=ex.conv_packing,
+                    with_heat=(cfg.tracking.coarse_method == "heat"),
+                    with_heat_inv=False,  # no production consumer
+                    compute_dtype=dtype)
 
     return run

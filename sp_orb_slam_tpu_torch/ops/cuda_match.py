@@ -15,6 +15,7 @@ import torch
 
 from sp_orb_slam_tpu_torch.ops import _build
 from sp_orb_slam_tpu_torch.ops.matching import TH_LOW, init_match
+from sp_orb_slam_tpu_torch.utils.timing import span
 
 _ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
          + [ctypes.c_float] * 3)
@@ -47,30 +48,32 @@ def match_init_batch(desc1: torch.Tensor, valid1: torch.Tensor,
 
     Returns (match12 (B, M) int32 into frame-2 keypoints or -1, n_matches
     (B,) int32, match21 (B, N) int32 or -1)."""
-    if desc1.device.type == "cpu":
-        return init_match(desc1, valid1, prev_uv, desc2, uv2, valid2,
-                          window=window, ratio=ratio, th=th)
-    B, M, D = desc1.shape
-    N = desc2.shape[1]
-    if D % 32:
-        raise ValueError(f"match kernel needs D % 32 == 0, got {D}")
-    _build.check(desc1, "desc1", torch.float32, (B, M, D))
-    _build.check(valid1, "valid1", torch.bool, (B, M))
-    _build.check(prev_uv, "prev_uv", torch.float32, (B, M, 2))
-    _build.check(desc2, "desc2", torch.float32, (B, N, D))
-    _build.check(uv2, "uv2", torch.float32, (B, N, 2))
-    _build.check(valid2, "valid2", torch.bool, (B, N))
-    if not (B and M and N):
-        raise ValueError(f"match kernel needs B, M, N >= 1, got "
-                         f"{(B, M, N)}")
-    if desc1.data_ptr() % 16 or desc2.data_ptr() % 16:
-        # the kernel stages descriptor rows by 16-byte copies
-        raise ValueError("match kernel needs 16-byte aligned descriptors")
-    dev = desc1.device
-    tile = plan(B, M, N, _sms(dev.index if dev.index is not None
-                              else torch.cuda.current_device()))
-    return _launch(desc1, valid1, prev_uv, desc2, uv2, valid2, tile, window,
-                   ratio, th)
+    with span("match/init"):
+        if desc1.device.type == "cpu":
+            return init_match(desc1, valid1, prev_uv, desc2, uv2, valid2,
+                              window=window, ratio=ratio, th=th)
+        B, M, D = desc1.shape
+        N = desc2.shape[1]
+        if D % 32:
+            raise ValueError(f"match kernel needs D % 32 == 0, got {D}")
+        _build.check(desc1, "desc1", torch.float32, (B, M, D))
+        _build.check(valid1, "valid1", torch.bool, (B, M))
+        _build.check(prev_uv, "prev_uv", torch.float32, (B, M, 2))
+        _build.check(desc2, "desc2", torch.float32, (B, N, D))
+        _build.check(uv2, "uv2", torch.float32, (B, N, 2))
+        _build.check(valid2, "valid2", torch.bool, (B, N))
+        if not (B and M and N):
+            raise ValueError(f"match kernel needs B, M, N >= 1, got "
+                             f"{(B, M, N)}")
+        if desc1.data_ptr() % 16 or desc2.data_ptr() % 16:
+            # the kernel stages descriptor rows by 16-byte copies
+            raise ValueError("match kernel needs 16-byte aligned "
+                             "descriptors")
+        dev = desc1.device
+        tile = plan(B, M, N, _sms(dev.index if dev.index is not None
+                                  else torch.cuda.current_device()))
+        return _launch(desc1, valid1, prev_uv, desc2, uv2, valid2, tile,
+                       window, ratio, th)
 
 
 def _launch(desc1, valid1, prev_uv, desc2, uv2, valid2, tile, window, ratio,

@@ -64,6 +64,7 @@ from sp_orb_slam_tpu_torch.geometry.triangulation import (depth_and_tau,
 from sp_orb_slam_tpu_torch.ops import cuda_match, matching
 from sp_orb_slam_tpu_torch.optim import pose as pose_opt
 from sp_orb_slam_tpu_torch.utils.precision import full_f32
+from sp_orb_slam_tpu_torch.utils.timing import span
 
 
 # ---------------------------------------------------------------------------
@@ -676,11 +677,17 @@ class TrackingKernels:
 
     @_stage
     def _fetch_rows(self, feats, rows: slice) -> List[dict]:
-        flat = torch.func.vmap(self._feat_flat)(
-            feats.uv[rows], feats.score[rows], feats.response[rows],
-            feats.valid[rows], feats.cov2_inv[rows], feats.occ_grid[rows],
-            feats.count[rows]).cpu().numpy()
-        return [self._host_mirrors(self.feat_layout.unpack(r)) for r in flat]
+        with span("readback"):
+            with span("readback/pack"):
+                flat = torch.func.vmap(self._feat_flat)(
+                    feats.uv[rows], feats.score[rows], feats.response[rows],
+                    feats.valid[rows], feats.cov2_inv[rows],
+                    feats.occ_grid[rows], feats.count[rows])
+            with span("readback/copy"):
+                flat = flat.cpu().numpy()
+            with span("readback/unpack"):
+                return [self._host_mirrors(self.feat_layout.unpack(r))
+                        for r in flat]
 
     @_stage
     def gather_rows(self, bank, rows, valid) -> torch.Tensor:

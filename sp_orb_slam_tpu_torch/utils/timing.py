@@ -1,4 +1,5 @@
-"""Hierarchical named timers.
+"""Hierarchical named timers, and the program's spans on the profiler's
+clock.
 
 Rebuild of the reference's voxblox-derived timing utility
 (include/orb_slam/utils/timing.h: `timing::Timer`/`Timing` with rolling
@@ -7,23 +8,50 @@ Tags mirror the reference instrumentation (tracking/frame, tracking/dust,
 tracking/local_map, extraction, mapping/*); `/`-separated tags render as a
 hierarchy.
 
-The port keeps its own copy of the JAX package's utils/timing.py.
+`span(name)` is the one span mechanism: while a torch.profiler session
+records, it opens a range `sp/<name>` in the profiler's own clock, beside
+the device's events; otherwise it returns a shared no-op context.
+`Timer.span` opens one around each of its samples.
+
+The port's own copy of the JAX package's utils/timing.py, with `span`
+added and every sample kept.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import time
 from collections import deque
-from contextlib import contextmanager
-from typing import Dict
+from contextlib import contextmanager, nullcontext
+from typing import Dict, List
+
+import torch
+from torch._C._profiler import _RecordFunctionFast
+
+PREFIX = "sp/"
+_OFF = nullcontext()
+
+
+def span(name: str):
+    """A context marking `name` for the profiler, when one records.
+
+    The range is FUNCTION-scoped (`_RecordFunctionFast`): the profiler
+    does not mirror it onto the device's timeline as it does a
+    `torch.profiler.record_function` (a user annotation), so a trace's
+    device events stay the device's work."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _RecordFunctionFast(PREFIX + name)
 
 
 class _Accumulator:
-    """Rolling-window stats (reference window 50 samples, timing.h:19-93)."""
+    """Every sample up to `cap` (the newest kept), with the reference's
+    rolling-window stats over the newest `window` (timing.h:19-93)."""
 
-    def __init__(self, window: int = 50):
-        self.samples = deque(maxlen=window)
+    def __init__(self, window: int = 50, cap: int = 1 << 16):
+        self.window = window
+        self.samples = deque(maxlen=cap)
         self.total = 0.0
         self.count = 0
         self.min = math.inf
@@ -36,17 +64,22 @@ class _Accumulator:
         self.min = min(self.min, dt)
         self.max = max(self.max, dt)
 
+    def _rolling(self) -> List[float]:
+        return list(itertools.islice(reversed(self.samples), self.window))
+
     @property
     def mean(self) -> float:
-        return sum(self.samples) / len(self.samples) if self.samples else 0.0
+        r = self._rolling()
+        return sum(r) / len(r) if r else 0.0
 
     @property
     def std(self) -> float:
-        n = len(self.samples)
+        r = self._rolling()
+        n = len(r)
         if n < 2:
             return 0.0
-        m = self.mean
-        return math.sqrt(sum((s - m) ** 2 for s in self.samples) / (n - 1))
+        m = sum(r) / n
+        return math.sqrt(sum((s - m) ** 2 for s in r) / (n - 1))
 
 
 class Timer:
@@ -55,14 +88,20 @@ class Timer:
 
     @contextmanager
     def span(self, tag: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(tag, time.perf_counter() - t0)
+        """A host-clock sample of `tag`, inside `span(tag)`."""
+        with span(tag):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.add(tag, time.perf_counter() - t0)
 
     def add(self, tag: str, dt: float) -> None:
         self.tags.setdefault(tag, _Accumulator()).add(dt)
+
+    def samples(self) -> Dict[str, List[float]]:
+        """{tag: its kept samples in seconds, oldest first}."""
+        return {tag: list(a.samples) for tag, a in self.tags.items()}
 
     def table(self) -> str:
         """Printable hierarchy (Timing::Print, timing.h:114-177): total,
