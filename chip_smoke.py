@@ -1810,6 +1810,73 @@ def time_process(sys_):
     return per_frame
 
 
+def replay_check(sys_, cfg, state, dev, raw):
+    """System's extractor closure replays its captured graph: it replayed
+    during the spin, and one more replay (the frame `raw`, as System hands
+    it in) is bit-equal in every field to the module's eager `extract` on
+    the same image, with each of its hand-written kernels in IN_PATH seen
+    by the profiler as device events as often as the replay counted it in
+    `_build.LAUNCHES`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sp_orb_slam_tpu_torch.extractor import (Features, extract,
+                                                 extract_options)
+    from sp_orb_slam_tpu_torch.models.superpoint import SuperPoint
+    from sp_orb_slam_tpu_torch.ops import _build
+
+    run = sys_._extract
+    spun = dict(run.calls)
+    if spun.get("replay", 0) < 1:
+        raise AssertionError(f"SLAM: the extractor never replayed: {spun}")
+    images = []
+
+    def keep_input(x):
+        images.append(x)
+        return run(x)
+
+    sys_._extract = keep_input
+    before = dict(_build.LAUNCHES)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = sys_._dispatch_extract(raw)
+            torch.cuda.synchronize()
+    finally:
+        sys_._extract = run
+    counted = {k: n - before[k] for k, n in _build.LAUNCHES.items()
+               if n != before[k]}
+    seen = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            for name, prefix in IN_PATH:
+                if short_name(ev.key).startswith(prefix):
+                    seen[name] = seen.get(name, 0) + ev.count
+    model = SuperPoint(state).to(dev).eval()
+    with torch.inference_mode():
+        want = extract(model, images[0], **extract_options(cfg))
+    torch.cuda.synchronize()
+    def bits(t):
+        return t.reshape(-1).contiguous().view(torch.uint8)
+
+    differ = [f for f, a, b in zip(Features._fields, got, want)
+              if (a is None) != (b is None) or a is not None and not (
+                  a.dtype == b.dtype and a.shape == b.shape
+                  and torch.equal(bits(a), bits(b)))]
+    log(f"SLAM replay: calls after the spin {spun}, then "
+        f"{dict(run.calls)}; the replay's launches {counted}, its kernels "
+        f"seen by the profiler {seen}; fields not bit-equal to the eager "
+        f"extract: {differ}")
+    if run.calls["replay"] != spun["replay"] + 1:
+        raise AssertionError("SLAM: the checked call did not replay")
+    if differ:
+        raise AssertionError(f"SLAM: replay differs from extract in {differ}")
+    if counted != {name: 1 for name, _ in IN_PATH} or seen != counted:
+        raise AssertionError(f"SLAM: the replay counted {counted} launches, "
+                             f"the profiler saw {seen}")
+
+
 def slam_phase(state, dev, smi, frames):
     """The offline SLAM path on the card over the first OFFLINE_FRAMES
     frames of the held-out rendered room (texture seed 5), then the gates.
@@ -1851,6 +1918,7 @@ def slam_phase(state, dev, smi, frames):
         torch.cuda.synchronize()
         win_ms = (time.perf_counter() - t1) * 1e3
     launches = read_launches("SLAM", SLAM_KERNELS)
+    replay_check(sys_, cfg, state, dev, frames[OFFLINE_FRAMES - 1])
 
     rep = sys_.report()
     ts, poses = sys_.trajectory()
@@ -2430,6 +2498,10 @@ def fleet_phase(state, dev, smi, frames, gt, cfg=None):
         torch.cuda.synchronize()
         win_ms = (time.perf_counter() - t1) * 1e3
     launches = read_launches("fleet", FLEET_KERNELS)
+    calls = [dict(run.calls) for _, run in fleet._extractors.values()]
+    log(f"fleet extractor calls: {calls}")
+    if not all(c.get("replay", 0) > 0 for c in calls):
+        raise AssertionError(f"fleet: an extractor never replayed: {calls}")
 
     kern = []
     for ev in prof.key_averages():

@@ -6,19 +6,25 @@ SPExtractor::operator(), src/cv/sp_extractor.cpp:361-514): frontend forward
 + covariance, batched over streams.  On a CUDA device the hand-written
 kernels carry the path: the fused first conv pair (bfloat16), the NMS fixed
 point, the descriptor sampling and the covariance fill (ops/cuda_*.py); the
-plain PyTorch versions run on the CPU.
+plain PyTorch versions run on the CPU.  `make_extractor`'s closure replays
+the whole extraction on a CUDA device as one captured CUDA graph for each
+input shape that recurs (`_GraphRunner`).
 """
 
 from __future__ import annotations
 
+import collections
+import math
+import threading
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from sp_orb_slam_tpu_torch.config import Config
 from sp_orb_slam_tpu_torch.models.superpoint import (
     SuperPoint, sample_descriptors, sample_descriptors_dense)
-from sp_orb_slam_tpu_torch.ops import cuda_cov, cuda_desc, cuda_nms
+from sp_orb_slam_tpu_torch.ops import _build, cuda_cov, cuda_desc, cuda_nms
 from sp_orb_slam_tpu_torch.ops import covariance as cov_ops
 from sp_orb_slam_tpu_torch.ops import nms as nms_ops
 from sp_orb_slam_tpu_torch.utils.timing import span
@@ -187,38 +193,161 @@ def extract(model: SuperPoint, images: torch.Tensor, *, num_features: int,
                     kps.count)
 
 
+def extract_options(cfg: Config) -> dict:
+    """The keywords `make_extractor`'s closure calls `extract` with."""
+    ex = cfg.extractor
+    return dict(
+        num_features=cfg.tracking.num_features,
+        max_keypoints=cfg.runtime.max_keypoints,
+        conf_thresh=ex.conf_thresh, nms_dist=ex.nms_dist,
+        border=ex.border, nms_iters=ex.nms_iters,
+        cov_radius=ex.cov_window, cov_iters=ex.cov_iters,
+        cov_method=ex.cov_method, nms_method=ex.nms_method,
+        desc_method=ex.desc_method, conv_packing=ex.conv_packing,
+        with_heat=(cfg.tracking.coarse_method == "heat"),
+        with_heat_inv=False,  # no production consumer
+        compute_dtype=(torch.bfloat16 if ex.dtype == "bfloat16"
+                       else torch.float32))
+
+
+# input keys (shape and options) a closure keeps a graph for, the least
+# recently used dropped first
+GRAPHS_KEPT = 4
+_ALIGN = 256  # bytes: each output field's offset in a graph's flat buffer
+
+
+class _Graph(NamedTuple):
+    """One captured extraction."""
+
+    graph: torch.cuda.CUDAGraph
+    images: torch.Tensor  # the static input (B, H, W) float32
+    flat: torch.Tensor    # uint8: the outputs, copied in by the graph
+    layout: tuple         # each Features field's (offset, dtype, shape), or None
+    launches: dict        # hand-written kernel launches a replay runs
+
+
+def _pack(feats: Features) -> tuple[torch.Tensor, tuple]:
+    """(one flat byte buffer holding a copy of every field of `feats`, each
+    field's (offset, dtype, shape) there or None)."""
+    layout, size = [], 0
+    for t in feats:
+        if t is None:
+            layout.append(None)
+            continue
+        layout.append((size, t.dtype, tuple(t.shape)))
+        size += -(-t.numel() * t.element_size() // _ALIGN) * _ALIGN
+    flat = torch.empty(size, dtype=torch.uint8, device=feats.uv.device)
+    for t, f in zip(feats, layout):
+        if f is not None:
+            _field(flat, *f).copy_(t)
+    return flat, tuple(layout)
+
+
+def _unpack(flat: torch.Tensor, layout: tuple) -> Features:
+    """The Features that `_pack` wrote into `flat`, as views of it."""
+    return Features(*(None if f is None else _field(flat, *f)
+                      for f in layout))
+
+
+def _field(flat: torch.Tensor, offset: int, dtype: torch.dtype,
+           shape: tuple) -> torch.Tensor:
+    n = math.prod(shape) * dtype.itemsize
+    return flat[offset:offset + n].view(dtype).view(shape)
+
+
+def _eager(model: SuperPoint, dev: torch.device, images, kw) -> Features:
+    with span("extract/upload"):
+        images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        return extract(model, images, **kw)
+
+
+class _GraphRunner:
+    """`make_extractor`'s calls: on a CUDA device the first call of a key
+    (the input's shape and `extract`'s options) runs eagerly, which warms
+    up its kernels and caches, the second captures the extraction as a
+    CUDA graph and replays it, and later calls replay it; the CPU runs
+    every call eagerly.
+
+    A replay uploads into the graph's static input and copies the outputs
+    out of its static buffers into a fresh one, so a call's Features
+    outlive the next replay.  Outside its pool a graph reads only its
+    static input and the model's weights, which the model casts and packs
+    once and holds (models/superpoint.py), so nothing inside a capture
+    packs or uploads, whatever other extractors run between.  The capture
+    is thread-local: the online mode's threads use the card meanwhile.  `calls` counts the calls by
+    how they ran ("eager", "capture", "replay"); `graphs` holds the
+    `GRAPHS_KEPT` newest keys (a `_Graph`, or None for a key run once),
+    and dropping one frees its graph and its memory pool."""
+
+    def __init__(self, model: SuperPoint, dev: torch.device):
+        self.model = model
+        self.dev = dev
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
+        self.calls: collections.Counter = collections.Counter()
+        self._lock = threading.Lock()
+        self._stream = None  # the captures' stream, on the closure's device
+
+    def __call__(self, images, kw: dict) -> Features:
+        if self.dev.type != "cuda":
+            with self._lock:
+                self.calls["eager"] += 1
+            return _eager(self.model, self.dev, images, kw)
+        key = (tuple(np.shape(images)), tuple(kw.items()))
+        with self._lock, torch.cuda.device(self.dev), torch.inference_mode():
+            if key not in self.graphs:
+                self.graphs[key] = None
+                if len(self.graphs) > GRAPHS_KEPT:
+                    self.graphs.popitem(last=False)
+                self.calls["eager"] += 1
+                return _eager(self.model, self.dev, images, kw)
+            self.graphs.move_to_end(key)
+            g = self.graphs[key]
+            with span("extract/upload"):
+                src = torch.as_tensor(images, dtype=torch.float32)
+                static = (g.images if g is not None else
+                          torch.empty(src.shape, dtype=torch.float32,
+                                      device=self.dev))
+                static.copy_(src)
+            if g is None:
+                g = self.graphs[key] = self._capture(static, kw)
+                self.calls["capture"] += 1
+            else:
+                self.calls["replay"] += 1
+            with span("extract/replay"):
+                g.graph.replay()
+                _build.add_launches(g.launches)
+                return _unpack(g.flat.clone(), g.layout)
+
+    def _capture(self, images: torch.Tensor, kw: dict) -> _Graph:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.dev)
+        graph = torch.cuda.CUDAGraph()
+        with _build.captured() as launches, torch.cuda.graph(
+                graph, stream=self._stream,
+                capture_error_mode="thread_local"):
+            flat, layout = _pack(extract(self.model, images, **kw))
+        return _Graph(graph, images, flat, layout, launches)
+
+
 def make_extractor(cfg: Config, params, device: str | torch.device = "cuda"):
     """The extractor closure for a config's operating point.
 
     `params` is a state dict (models/weights.py).  The model and every call
     run on `device`, which defaults to the card; with no card this raises
-    rather than running on the CPU (pass `device="cpu"` for that)."""
+    rather than running on the CPU (pass `device="cpu"` for that).  On the
+    card a shape that recurs is replayed as a CUDA graph (`_GraphRunner`);
+    the closure's `calls` and `graphs` are its runner's."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' to "
                            "run the extractor on the CPU")
-    model = SuperPoint(params).to(dev).eval()
-    ex = cfg.extractor
-    dtype = torch.bfloat16 if ex.dtype == "bfloat16" else torch.float32
+    runner = _GraphRunner(SuperPoint(params).to(dev).eval(), dev)
 
     def run(images) -> Features:
         with span("extract"):
-            with span("extract/upload"):
-                images = torch.as_tensor(images, dtype=torch.float32,
-                                         device=dev)
-            with torch.inference_mode():
-                return extract(
-                    model, images,
-                    num_features=cfg.tracking.num_features,
-                    max_keypoints=cfg.runtime.max_keypoints,
-                    conf_thresh=ex.conf_thresh, nms_dist=ex.nms_dist,
-                    border=ex.border, nms_iters=ex.nms_iters,
-                    cov_radius=ex.cov_window, cov_iters=ex.cov_iters,
-                    cov_method=ex.cov_method, nms_method=ex.nms_method,
-                    desc_method=ex.desc_method,
-                    conv_packing=ex.conv_packing,
-                    with_heat=(cfg.tracking.coarse_method == "heat"),
-                    with_heat_inv=False,  # no production consumer
-                    compute_dtype=dtype)
+            return runner(images, extract_options(cfg))
 
+    run.calls = runner.calls
+    run.graphs = runner.graphs
     return run

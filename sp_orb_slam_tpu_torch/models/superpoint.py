@@ -93,7 +93,8 @@ class SuperPoint(nn.Module):
     (`conv1a.weight`, ...), built from a state dict (models/weights.py);
     the module takes the state's tensors and their device.  For inference
     the weights are fixed once built: their copy in each compute dtype and
-    device is cast on first use.
+    device is cast on first use, and so is the fused first pair's packing
+    of conv1a and conv1b on each card.
     `train_forward` reads the parameters themselves; a trained state goes
     into a new module."""
 
@@ -104,6 +105,7 @@ class SuperPoint(nn.Module):
                                           device="meta"))
         self.load_state_dict(state, assign=True)
         self._cast: dict[tuple, dict[str, tuple]] = {}
+        self._packed: dict[torch.device, tuple] = {}
 
     def _weights(self, x: torch.Tensor) -> dict[str, tuple]:
         """{name: (weight channels-last, bias)} in x's dtype and on x's
@@ -117,6 +119,18 @@ class SuperPoint(nn.Module):
                         getattr(self, name).bias.to(x.device, x.dtype))
                     for name, *_ in LAYERS}
         return self._cast[key]
+
+    def _pair1_packed(self, device: torch.device) -> tuple:
+        """conv1a and conv1b packed for the fused first pair's kernels on
+        `device` (ops/cuda_pair1.py `pack`), once.  The module holds them:
+        a captured CUDA graph reads them, and no other module's call may
+        repack or free them."""
+        if device not in self._packed:
+            with torch.inference_mode(False), torch.no_grad():
+                self._packed[device] = cuda_pair1.pack(
+                    self.conv1a.weight, self.conv1a.bias,
+                    self.conv1b.weight, self.conv1b.bias, device)
+        return self._packed[device]
 
     @staticmethod
     def _conv_wb(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -181,8 +195,11 @@ class SuperPoint(nn.Module):
                 raise ValueError(f"{conv_packing} is the bfloat16 path")
             fused = (cuda_pair1t.fused_pair1t if conv_packing == "pair1t"
                      else cuda_pair1.fused_pair1)
+            packed = (self._pair1_packed(images.device)
+                      if images.device.type == "cuda" else None)
             x = fused(images, self.conv1a.weight, self.conv1a.bias,
-                      self.conv1b.weight, self.conv1b.bias).permute(0, 3, 1, 2)
+                      self.conv1b.weight, self.conv1b.bias,
+                      packed=packed).permute(0, 3, 1, 2)
             pairs = PAIRS[1:]
         elif conv_packing == "none" or conv_packing in S2D:
             x = images[:, None].to(compute_dtype).contiguous(
@@ -224,8 +241,7 @@ class SuperPoint(nn.Module):
             # full-res log-prob heat + the host wrapper's normalisation
             # (sp_extractor.cpp:128-131, 466-478), per-image min / max from
             # cell-level reductions (clip is monotone)
-            log_eps = torch.log(torch.tensor(1e-3, dtype=torch.float32))
-            log_eps = log_eps.to(semi.device)
+            log_eps = log_floor(semi)
             heat_log = torch.maximum(semi_nodust - lse[..., None], log_eps)
             mn = -torch.maximum(cellmax - lse, log_eps).amax((1, 2))
             mx = -torch.maximum(semi_nodust.amin(-1) - lse,
@@ -239,6 +255,17 @@ class SuperPoint(nn.Module):
                 heat = 1.0 - heat_inv
         return FrontendOut(semi_dust, dense_dust, score, cand_uv, cand_valid,
                            coarse, heat, heat_inv)
+
+
+# the heat map's floor: the float32 log of float32 1e-3, computed once on
+# the host
+LOG_EPS = float(torch.tensor(1e-3, dtype=torch.float32).log())
+
+
+def log_floor(like: torch.Tensor) -> torch.Tensor:
+    """LOG_EPS as a float32 scalar tensor on `like`'s device, made there by a
+    fill: nothing crosses the bus and the host does not wait."""
+    return like.new_full((), LOG_EPS, dtype=torch.float32)
 
 
 def unit_rows(x: torch.Tensor) -> torch.Tensor:

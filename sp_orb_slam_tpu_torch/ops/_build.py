@@ -9,11 +9,14 @@ time, so the package imports on a machine without `nvcc` or a card.
 
 Every C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns `cudaGetLastError()`; `launch`
-raises on a non-zero code and only then counts the launch in `LAUNCHES`.
+raises on a non-zero code and only then counts the launch in `LAUNCHES`,
+or, inside `captured()` (a CUDA graph's capture, which runs nothing), in
+the capture's own counts, which `add_launches` adds on each replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -35,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
+_local = threading.local()  # `captured`'s counts, per thread
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}
 
@@ -130,7 +134,29 @@ def launch(name: str, symbol: str, argtypes, *args,
         raise RuntimeError(f"{name} kernel: {symbol} returned CUDA error "
                            f"{err}")
     with _lock:  # the online mode's threads all launch
-        LAUNCHES[name] += 1
+        counts = getattr(_local, "captured", None)
+        (LAUNCHES if counts is None else counts)[name] += 1
+
+
+@contextlib.contextmanager
+def captured():
+    """Inside the block, this thread's launches are counted in the dict it
+    yields and not in `LAUNCHES`: a CUDA graph's capture enqueues them and
+    the card runs none of them.  Other threads count as usual."""
+    counts = dict.fromkeys(KERNELS, 0)
+    _local.captured = counts
+    try:
+        yield counts
+    finally:
+        _local.captured = None
+
+
+def add_launches(counts: dict) -> None:
+    """Count launches that a graph's replay ran (the dict `captured`
+    yielded)."""
+    with _lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def noop(device: torch.device) -> None:

@@ -11,9 +11,11 @@ wrapper launches the kernel for a CUDA tensor and runs the plain version
 for a CPU tensor.
 
 The kernel takes conv1b's weights packed as [tap = dy*3+dx][co][ci] bf16
-with the 128-byte swizzle applied (`pack_w1b`); `packed_weights` packs the
-four tensors once and caches the result, so a call with the same weights
-launches the kernel and nothing else.
+with the 128-byte swizzle applied (`pack_w1b`); `pack` packs the four
+tensors, and `packed_weights` packs them once and caches the result, so a
+call with the same weights launches the kernel and nothing else.  A caller
+that holds its own packing (the SuperPoint module does) passes it as
+`packed`, and nothing is packed or looked up.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ _GRID_ARGS = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
 
 fused_pair1_plain = fused_pair1t_plain
 
-# packings made by `packed_weights` (a plain count, read by the tests)
+# packings made by `pack` (a plain count, read by the tests)
 packs = 0
 _cache: tuple | None = None  # (sources, versions, packed) of the last call
 
@@ -62,14 +64,25 @@ def pack_w1a(w1a: torch.Tensor) -> torch.Tensor:
     return wa
 
 
+def pack(w1a: torch.Tensor, b1a: torch.Tensor, w1b: torch.Tensor,
+         b1b: torch.Tensor, device: torch.device) -> tuple:
+    """(w1a (64, 16) bf16, b1a f32, w1b (9, 64, 64) bf16 swizzled, b1b f32)
+    on `device`: the weights as the kernels take them."""
+    global packs
+    packs += 1
+    return (pack_w1a(w1a.to(device)),
+            b1a.to(device, torch.float32).contiguous(),
+            pack_w1b(w1b.to(device)),
+            b1b.to(device, torch.float32).contiguous())
+
+
 def packed_weights(w1a: torch.Tensor, b1a: torch.Tensor, w1b: torch.Tensor,
                    b1b: torch.Tensor, device: torch.device) -> tuple:
-    """(w1a (64, 16) bf16, b1a f32, w1b (9, 64, 64) bf16 swizzled, b1b f32)
-    on `device`, packed once while the same four tensors come at the same
-    versions (a model's weights, call after call).  The cache holds the
-    sources, so it is never mistaken for another tensor at a reused
+    """`pack`'s result, packed once while the same four tensors come at the
+    same versions (a model's weights, call after call).  The cache holds
+    the sources, so it is never mistaken for another tensor at a reused
     address; inference tensors carry no version counter and pack anew."""
-    global packs, _cache
+    global _cache
     src = (w1a, b1a, w1b, b1b)
     versions = None
     if not any(t.is_inference() for t in src):
@@ -77,19 +90,18 @@ def packed_weights(w1a: torch.Tensor, b1a: torch.Tensor, w1b: torch.Tensor,
         if (_cache is not None and _cache[1] == versions
                 and all(a is b for a, b in zip(_cache[0], src))):
             return _cache[2]
-    packed = (pack_w1a(w1a.to(device)),
-              b1a.to(device, torch.float32).contiguous(),
-              pack_w1b(w1b.to(device)),
-              b1b.to(device, torch.float32).contiguous())
-    packs += 1
+    packed = pack(w1a, b1a, w1b, b1b, device)
     _cache = None if versions is None else (src, versions, packed)
     return packed
 
 
 def fused_pair1(images: torch.Tensor, w1a: torch.Tensor, b1a: torch.Tensor,
-                w1b: torch.Tensor, b1b: torch.Tensor) -> torch.Tensor:
+                w1b: torch.Tensor, b1b: torch.Tensor, *,
+                packed: tuple | None = None) -> torch.Tensor:
     """images (B, H, W) float32 in [0, 1] -> pooled (B, H/2, W/2, 64) bf16.
-    Weights are OIHW (64, 1, 3, 3) / (64, 64, 3, 3), biases (64,).
+    Weights are OIHW (64, 1, 3, 3) / (64, 64, 3, 3), biases (64,);
+    `packed`, if given, is their `pack` on the images' device, which the
+    kernel then reads in place of `packed_weights`'.
 
     Requires H % 8 == 0 and W % 2 == 0 (EuRoC 752x480, Tsukuba 640x480)."""
     B, H, W = images.shape
@@ -100,7 +112,8 @@ def fused_pair1(images: torch.Tensor, w1a: torch.Tensor, b1a: torch.Tensor,
         return fused_pair1_plain(images, w1a, b1a, w1b, b1b)
     _build.check(images, "images", torch.float32, (B, H, W))
     dev = images.device
-    wa, ba, wb, bb = packed_weights(w1a, b1a, w1b, b1b, dev)
+    wa, ba, wb, bb = (packed if packed is not None else
+                      packed_weights(w1a, b1a, w1b, b1b, dev))
     _build.check(wa, "w1a", torch.bfloat16, (C, 16))
     _build.check(wb, "w1b", torch.bfloat16, (9, C, C))
     _build.check(ba, "b1a", torch.float32, (C,))

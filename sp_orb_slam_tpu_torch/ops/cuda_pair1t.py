@@ -10,8 +10,9 @@ tensor and runs `fused_pair1t_plain`, the same arithmetic in plain
 PyTorch, for a CPU tensor.
 
 The kernel takes the weights as the pair1 kernel does, from the same cache
-(ops/cuda_pair1.py `packed_weights`): conv1b as [tap][co][ci] bf16 with the
-128-byte swizzle applied, conv1a as [co][16 taps].
+(ops/cuda_pair1.py `packed_weights`) or from the caller (`packed`): conv1b
+as [tap][co][ci] bf16 with the 128-byte swizzle applied, conv1a as [co][16
+taps].
 """
 
 from __future__ import annotations
@@ -49,8 +50,10 @@ def fused_pair1t_plain(images: torch.Tensor, w1a: torch.Tensor,
 
 
 def fused_pair1t(images: torch.Tensor, w1a: torch.Tensor, b1a: torch.Tensor,
-                 w1b: torch.Tensor, b1b: torch.Tensor) -> torch.Tensor:
-    """images (B, H, W) float32 in [0, 1] -> pooled (B, H/2, W/2, 64) bf16.
+                 w1b: torch.Tensor, b1b: torch.Tensor, *,
+                 packed: tuple | None = None) -> torch.Tensor:
+    """images (B, H, W) float32 in [0, 1] -> pooled (B, H/2, W/2, 64) bf16;
+    `packed` as in ops/cuda_pair1.py `fused_pair1`.
 
     Requires H % 8 == 0 and W % 2 == 0, and W % 4 == 0 on the card
     (EuRoC 752x480, Tsukuba 640x480)."""
@@ -68,7 +71,8 @@ def fused_pair1t(images: torch.Tensor, w1a: torch.Tensor, b1a: torch.Tensor,
     # cuda_pair1 imports this module for the plain version: import it here
     from sp_orb_slam_tpu_torch.ops import cuda_pair1
 
-    wa, ba, wb, bb = cuda_pair1.packed_weights(w1a, b1a, w1b, b1b, dev)
+    wa, ba, wb, bb = (packed if packed is not None else
+                      cuda_pair1.packed_weights(w1a, b1a, w1b, b1b, dev))
     _build.check(wa, "w1a", torch.bfloat16, (C, 16))
     _build.check(wb, "w1b", torch.bfloat16, (9, C, C))
     _build.check(ba, "b1a", torch.float32, (C,))

@@ -92,11 +92,10 @@ def greedy_grid_nms(score: torch.Tensor, cand_uv: torch.Tensor,
     return kept
 
 
-def _at(x: torch.Tensor, i) -> torch.Tensor:
-    """x[:, i] per row with the index clamped into range (the JAX package
-    indexes with XLA's clamping gather)."""
-    i = torch.as_tensor(i, device=x.device).clamp(0, x.shape[1] - 1)
-    return torch.gather(x, 1, i.reshape(-1, 1).expand(x.shape[0], 1))[:, 0]
+def _at(x: torch.Tensor, i: int) -> torch.Tensor:
+    """x[:, i] with the index clamped into range (the JAX package indexes
+    with XLA's clamping gather): a basic index, so nothing is uploaded."""
+    return x[:, min(max(i, 0), x.shape[1] - 1)]
 
 
 def select_keypoints(score: torch.Tensor, cand_uv: torch.Tensor,

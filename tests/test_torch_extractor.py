@@ -18,8 +18,10 @@ from sp_orb_slam_tpu.io.render import RenderedDataset as JRendered
 from sp_orb_slam_tpu.models import superpoint as jsp
 from sp_orb_slam_tpu.ops.pallas_match import match_init_batch as jmatch
 from sp_orb_slam_tpu_torch.config import Config, load_config
+from sp_orb_slam_tpu_torch import extractor as textractor
 from sp_orb_slam_tpu_torch.extractor import Features, extract, make_extractor
 from sp_orb_slam_tpu_torch.io.render import RenderedDataset
+from sp_orb_slam_tpu_torch.models import superpoint as tsp
 from sp_orb_slam_tpu_torch.models.superpoint import SuperPoint
 from sp_orb_slam_tpu_torch.models.weights import params_from_jax
 from sp_orb_slam_tpu_torch.ops import cuda_match
@@ -93,6 +95,71 @@ def test_make_extractor_cpu(jparams, images):
     jf = jextract(jparams, jnp.asarray(images), num_features=NF,
                   max_keypoints=K)
     np.testing.assert_array_equal(feats.uv.numpy(), np.asarray(jf.uv))
+
+
+def _bits(t):
+    return t.reshape(-1).contiguous().view(torch.uint8)
+
+
+def _uploaded_floor(like):
+    """The heat floor as it was: log(1e-3) computed on the host and copied
+    to `like`'s device."""
+    return torch.log(torch.tensor(1e-3, dtype=torch.float32)).to(like.device)
+
+
+def test_log_floor_is_the_uploaded_floor():
+    x = torch.zeros(3)
+    got, want = tsp.log_floor(x), _uploaded_floor(x)
+    assert (got.dtype, got.shape, got.device) == (want.dtype, want.shape,
+                                                  want.device)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("nan", [False, True])
+def test_forward_heat_bit_equal_to_maximum_floor(jparams, images, nan,
+                                                 monkeypatch):
+    """The forward's heat maps with the host-constant floor are bit-equal to
+    the uploaded floor's, a NaN pixel's NaN included."""
+    model = SuperPoint(params_from_jax(jparams))
+    x = torch.from_numpy(images).clone()
+    if nan:
+        x[0, 40, 60] = float("nan")
+    with torch.no_grad():
+        got = model(x, with_heat=True)
+        monkeypatch.setattr(tsp, "log_floor", _uploaded_floor)
+        want = model(x, with_heat=True)
+    for f in ("heat", "heat_inv"):
+        assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
+    assert bool(torch.isnan(got.heat_inv).any()) == nan
+
+
+def test_pack_round_trip(both):
+    """The graph path's copy-out: every field of a call's Features through
+    one flat byte buffer, bit-equal, with its dtype and shape, each at an
+    aligned offset, and a field left out as None."""
+    _, tf = both
+    flat, layout = textractor._pack(tf)
+    assert flat.dtype == torch.uint8 and flat.dim() == 1
+    back = textractor._unpack(flat.clone(), layout)
+    for name, a, b, f in zip(Features._fields, tf, back, layout):
+        if a is None:
+            assert b is None and f is None, name
+            continue
+        assert f[0] % textractor._ALIGN == 0, name
+        assert (b.dtype, b.shape) == (a.dtype, a.shape), name
+        assert torch.equal(_bits(b), _bits(a)), name
+
+
+def test_make_extractor_cpu_runs_eagerly(jparams, images):
+    """On the CPU every call runs eagerly and keeps no graph."""
+    cfg = dataclasses.replace(Config(), tracking=dataclasses.replace(
+        Config().tracking, num_features=NF), runtime=dataclasses.replace(
+        Config().runtime, max_keypoints=K))
+    run = make_extractor(cfg, params_from_jax(jparams), device="cpu")
+    a, b = run(images), run(images)
+    assert run.calls == {"eager": 2} and not run.graphs
+    for f in EXACT:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
 def test_extract_rejects_bad_options(jparams, images):

@@ -6,8 +6,13 @@ only torch and the port, so it runs on a machine without JAX:
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import collections
+import dataclasses
+import os
+
 import pytest
 import torch
+import torch.nn.functional as F
 
 from sp_orb_slam_tpu_torch.models.superpoint import (
     sample_descriptors, sample_descriptors_dense)
@@ -467,3 +472,257 @@ def test_train_step_card_vs_cpu(cuda):
     lines = chip_smoke.step_card_vs_cpu(
         state, next(tt.batches(pool, 2, seed=0)), cuda)
     assert len(lines) == 1 + 24
+
+
+# --- the extraction replayed as a CUDA graph (extractor._GraphRunner) -------
+
+WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "weights", "sp_rendered.npz")
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+         "cudaEventSynchronize", "cudaMemcpy")
+
+
+def _graph_cfg(dtype):
+    from sp_orb_slam_tpu_torch.config import Config
+
+    cfg = Config()
+    return dataclasses.replace(cfg, extractor=dataclasses.replace(
+        cfg.extractor, dtype=dtype))
+
+
+def _host_images(B, H=480, W=752, seed=0):
+    """Host float32 batches in [0, 1]: seeded noise at the cell scale,
+    upsampled, so the trained frontend finds corners."""
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.rand((B, 1, H // 8, W // 8), generator=g)
+    return F.interpolate(coarse, size=(H, W), mode="bilinear",
+                         align_corners=False)[:, 0].contiguous().numpy()
+
+
+def _same_bits(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).contiguous().view(torch.uint8),
+        b.reshape(-1).contiguous().view(torch.uint8)))
+
+
+def _assert_same_features(got, want, what):
+    from sp_orb_slam_tpu_torch.extractor import Features
+
+    bad = [f for f, a, b in zip(Features._fields, got, want)
+           if not _same_bits(a, b)]
+    assert not bad, f"{what}: fields not bit-equal: {bad}"
+
+
+@pytest.mark.parametrize("dtype,B", [("float32", 1), ("bfloat16", 8),
+                                     ("bfloat16", 32)])
+def test_graph_replay_bit_equal_to_extract(cuda, dtype, B):
+    """Eager, capture, then two replays of one closure, each call's
+    Features bit-equal in every field to the module's eager `extract` on
+    the same batch, read after the last replay."""
+    from sp_orb_slam_tpu_torch.extractor import (extract, extract_options,
+                                                 make_extractor)
+    from sp_orb_slam_tpu_torch.models.superpoint import SuperPoint
+    from sp_orb_slam_tpu_torch.models.weights import load_checkpoint
+
+    cfg = _graph_cfg(dtype)
+    state = load_checkpoint(WEIGHTS)
+    run = make_extractor(cfg, state, device=cuda)
+    batches = [_host_images(B, seed=s) for s in range(4)]
+    got = [run(x) for x in batches]
+    assert run.calls == {"eager": 1, "capture": 1, "replay": 2}
+    model = SuperPoint(state).to(cuda).eval()
+    with torch.inference_mode():
+        want = [extract(model, torch.as_tensor(x, device=cuda),
+                        **extract_options(cfg)) for x in batches]
+    torch.cuda.synchronize()
+    assert int(want[0].count.min()) > 100
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_same_features(g, w, f"call {i}")
+
+
+def test_graph_outputs_outlive_the_next_replay(cuda):
+    """A call's Features are its own: later replays of the same graph on
+    other images leave them as they were."""
+    from sp_orb_slam_tpu_torch.extractor import make_extractor
+    from sp_orb_slam_tpu_torch.models.weights import load_checkpoint
+
+    run = make_extractor(_graph_cfg("float32"), load_checkpoint(WEIGHTS),
+                         device=cuda)
+    x0, x1 = _host_images(1, seed=10), _host_images(1, seed=11)
+    a, b = run(x0), run(x1)                  # eager, capture
+    kept = [None if t is None else t.clone() for t in b]
+    c, d = run(x0), run(x1)                  # replays
+    torch.cuda.synchronize()
+    assert run.calls == {"eager": 1, "capture": 1, "replay": 2}
+    _assert_same_features(b, kept, "step 2 after two replays")
+    _assert_same_features(c, a, "replay of step 1's images")
+    _assert_same_features(d, b, "replay of step 2's images")
+    assert c.uv.data_ptr() != a.uv.data_ptr() != d.uv.data_ptr()
+
+
+def test_graph_two_extractors_alternate(cuda):
+    """Two bfloat16 closures on the one card with different weights, called
+    in turn (as a fleet's extractors are each tick): each runs eagerly,
+    captures and replays, every call bit-equal to the eager `extract` with
+    its own weights, and no capture packs the first pair's weights."""
+    from sp_orb_slam_tpu_torch.extractor import (extract, extract_options,
+                                                 make_extractor)
+    from sp_orb_slam_tpu_torch.models.superpoint import SuperPoint
+    from sp_orb_slam_tpu_torch.models.weights import load_checkpoint
+
+    cfg = _graph_cfg("bfloat16")
+    states = [load_checkpoint(WEIGHTS)]
+    states.append({k: v * 0.97 if k == "conv1b.weight" else v
+                   for k, v in states[0].items()})
+    runs = [make_extractor(cfg, s, device=cuda) for s in states]
+    batches = [_host_images(8, seed=20 + s) for s in range(3)]
+    got = [[], []]
+    for x in batches:                        # eager, capture, replay
+        for i, run in enumerate(runs):
+            n = cuda_pair1.packs
+            got[i].append(run(x))
+            if len(got[i]) > 1:
+                assert cuda_pair1.packs == n, f"closure {i} packed again"
+    for run in runs:
+        assert run.calls == {"eager": 1, "capture": 1, "replay": 1}
+    for i, s in enumerate(states):
+        model = SuperPoint(s).to(cuda).eval()
+        with torch.inference_mode():
+            want = [extract(model, torch.as_tensor(x, device=cuda),
+                            **extract_options(cfg)) for x in batches]
+        torch.cuda.synchronize()
+        for j, (g, w) in enumerate(zip(got[i], want)):
+            _assert_same_features(g, w, f"closure {i}, call {j}")
+    assert not torch.equal(got[0][2].desc, got[1][2].desc)
+
+
+def test_graph_cache_keys_and_eviction(cuda):
+    """A new shape runs eagerly, then captures, then replays; the closure
+    keeps GRAPHS_KEPT keys and the least recently used goes first, its
+    graph freed, so its shape runs eagerly again."""
+    import gc
+    import weakref
+
+    from sp_orb_slam_tpu_torch import extractor
+    from sp_orb_slam_tpu_torch.models.weights import load_checkpoint
+
+    run = extractor.make_extractor(_graph_cfg("float32"),
+                                   load_checkpoint(WEIGHTS), device=cuda)
+    n = extractor.GRAPHS_KEPT
+    shapes = [(b, 64, 96) for b in range(1, n + 2)]
+    x = {s: _host_images(s[0], s[1], s[2], seed=s[0]) for s in shapes}
+    first = shapes[0]
+    modes = []
+    for s in [first] * 3:
+        before = dict(run.calls)
+        run(x[s])
+        modes += [k for k in run.calls if run.calls[k] != before.get(k, 0)]
+    assert modes == ["eager", "capture", "replay"]
+    keys = {k[0]: k for k in run.graphs}
+    assert list(keys) == [first]
+    graph = weakref.ref(run.graphs[keys[first]].graph)
+    for s in shapes[1:]:                     # n more shapes: first goes
+        run(x[s])
+    assert [k[0] for k in run.graphs] == shapes[1:]
+    gc.collect()
+    assert graph() is None
+    run(x[first])
+    assert run.calls == {"eager": n + 2, "capture": 1, "replay": 1}
+    assert [k[0] for k in run.graphs] == shapes[2:] + [first]
+
+
+def test_graph_launch_counts(cuda):
+    """`_build.LAUNCHES` after k replays equals k eager calls; the capture
+    call counts one extraction."""
+    from sp_orb_slam_tpu_torch.extractor import (extract, extract_options,
+                                                 make_extractor)
+    from sp_orb_slam_tpu_torch.models.superpoint import SuperPoint
+    from sp_orb_slam_tpu_torch.models.weights import load_checkpoint
+
+    cfg = _graph_cfg("bfloat16")
+    state = load_checkpoint(WEIGHTS)
+    run = make_extractor(cfg, state, device=cuda)
+    x = _host_images(2)
+
+    def counted(fn, k):
+        for name in _build.LAUNCHES:
+            _build.LAUNCHES[name] = 0
+        for _ in range(k):
+            fn()
+        torch.cuda.synchronize()
+        return {n: c for n, c in _build.LAUNCHES.items() if c}
+
+    assert counted(lambda: run(x), 2) == {"pair1": 2, "nms": 2, "cov": 2,
+                                         "desc_sparse": 2}
+    replays = counted(lambda: run(x), 3)
+    assert run.calls == {"eager": 1, "capture": 1, "replay": 3}
+    model = SuperPoint(state).to(cuda).eval()
+    with torch.inference_mode():
+        eager = counted(lambda: extract(model, torch.as_tensor(x, device=cuda),
+                                        **extract_options(cfg)), 3)
+    assert replays == eager == {"pair1": 3, "nms": 3, "cov": 3,
+                                "desc_sparse": 3}
+
+
+def _profiled(fn):
+    """(host events, device events) of fn() under torch.profiler, each
+    [name, start_ns, end_ns]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host, device = [], []
+    for e in prof.profiler.kineto_results.events():
+        row = [e.name(), e.start_ns(), e.start_ns() + e.duration_ns()]
+        (device if e.device_type() == DeviceType.CUDA else host).append(row)
+    return host, device
+
+
+def _inside(host, span):
+    iv = [(s, e) for n, s, e in host if n == span]
+    return [n for n, s, _ in host if any(a <= s < b for a, b in iv)]
+
+
+@pytest.mark.parametrize("source", ["host", "device"])
+def test_graph_replay_syncs_and_device_events(cuda, source):
+    """A replay waits for the card only in the upload of a host batch (none
+    for a batch already on the card), launches the graph once, and the
+    profiler sees each kernel of a warm eager call as its own device
+    event."""
+    from sp_orb_slam_tpu_torch.extractor import make_extractor
+    from sp_orb_slam_tpu_torch.models.weights import load_checkpoint
+
+    cfg, state = _graph_cfg("float32"), load_checkpoint(WEIGHTS)
+    run = make_extractor(cfg, state, device=cuda)
+    x = _host_images(1)
+    if source == "device":
+        x = torch.as_tensor(x, device=cuda)
+    eager = make_extractor(cfg, state, device=cuda)
+    eager(x)                          # the first call casts the weights
+    eager.graphs.clear()              # so that the next call is eager too
+    host_e, dev_e = _profiled(lambda: eager(x))
+    assert eager.calls == {"eager": 2}
+    run(x)                                            # eager
+    run(x)                                            # capture
+    host_r, dev_r = _profiled(lambda: run(x))         # replay
+    assert run.calls == {"eager": 1, "capture": 1, "replay": 1}
+    in_extract = _inside(host_r, "sp/extract")
+    syncs = [n for n in in_extract if n in SYNCS]
+    upload_syncs = [n for n in _inside(host_r, "sp/extract/upload")
+                    if n in SYNCS]
+    assert syncs == upload_syncs
+    assert len(syncs) == (1 if source == "host" else 0)
+    assert in_extract.count("cudaGraphLaunch") == 1
+    assert "sp/extract/replay" in in_extract
+    eager_syncs = [n for n in _inside(host_e, "sp/extract") if n in SYNCS]
+    assert len(eager_syncs) == len(syncs)     # the forward's and the
+    kernels = collections.Counter(             # selection's are gone
+        n for n, _, _ in dev_e if not n.startswith("Memcpy"))
+    replayed = collections.Counter(n for n, _, _ in dev_r)
+    missing = {n: c for n, c in kernels.items() if replayed[n] < c}
+    assert len(kernels) > 50 and not missing, missing

@@ -162,3 +162,18 @@ def test_nms_cluster_size():
     """8 blocks an image up to B=8 on the H100's 132 SMs, 1 above."""
     assert [cuda_nms.cluster_size(b, 132) for b in (1, 8, 9, 32, 220)] == [
         8, 8, 1, 1, 1]
+
+
+def _at_gather(x, i):
+    """`_at` as it was: the index uploaded, clamped, then gathered."""
+    i = torch.as_tensor(i, device=x.device).clamp(0, x.shape[1] - 1)
+    return torch.gather(x, 1, i.reshape(-1, 1).expand(x.shape[0], 1))[:, 0]
+
+
+@pytest.mark.parametrize("i", [0, 5, 11, -1, -7, 12, 40])
+def test_at_is_the_clamped_gather(i):
+    """The basic index equals the clamped gather in range, below it and past
+    its end."""
+    x = torch.from_numpy(np.random.default_rng(3).random((3, 12), np.float32))
+    np.testing.assert_array_equal(tnms._at(x, i).numpy(),
+                                  _at_gather(x, i).numpy())

@@ -126,6 +126,31 @@ def test_pair1_packing_is_cached():
     assert cuda_pair1.packs == n + 4
 
 
+def test_model_holds_its_pair1_packing():
+    """Each SuperPoint module packs its own conv1a and conv1b once a device
+    and keeps them: another module's packing, or the wrappers' one-entry
+    cache taking other weights, leaves them as they were (a captured CUDA
+    graph reads them)."""
+    cpu = torch.device("cpu")
+    m1, m2 = (tsp.SuperPoint(tsp.init_params(torch.Generator().manual_seed(s)))
+              for s in (1, 2))
+    n = cuda_pair1.packs
+    p1 = m1._pair1_packed(cpu)
+    assert m1._pair1_packed(cpu) is p1 and cuda_pair1.packs == n + 1
+    keep = [t.clone() for t in p1]
+    m2._pair1_packed(cpu)
+    cuda_pair1.packed_weights(m2.conv1a.weight, m2.conv1a.bias,
+                              m2.conv1b.weight, m2.conv1b.bias, cpu)
+    assert m1._pair1_packed(cpu) is p1 and cuda_pair1.packs == n + 3
+    want = cuda_pair1.pack(m1.conv1a.weight, m1.conv1a.bias,
+                           m1.conv1b.weight, m1.conv1b.bias, cpu)
+    for a, b, c in zip(p1, keep, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert not any(t.is_inference() for t in p1)
+    assert torch.equal(_unpack_w1b(p1[2]), m1.conv1b.weight.detach().to(
+        torch.bfloat16))
+
+
 @pytest.mark.parametrize("dtype,device,hw,want", [
     (torch.bfloat16, "cuda", (480, 752), "pair1"),
     (torch.bfloat16, "cuda", (480, 640), "pair1"),
