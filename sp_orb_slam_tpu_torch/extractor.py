@@ -221,7 +221,7 @@ def make_extractor(cfg: Config, params, device: str | torch.device = "cuda"):
     run on `device`, which defaults to the card; with no card this raises
     rather than running on the CPU (pass `device="cpu"` for that).  On the
     card a shape that recurs is replayed as a CUDA graph (`GraphRunner`);
-    the closure's `calls` and `graphs` are its runner's."""
+    the closure's `calls`, `uploads` and `graphs` are its runner's."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' to "
@@ -235,5 +235,6 @@ def make_extractor(cfg: Config, params, device: str | torch.device = "cuda"):
             return runner(images, extract_options(cfg))
 
     run.calls = runner.calls
+    run.uploads = runner.uploads
     run.graphs = runner.graphs
     return run

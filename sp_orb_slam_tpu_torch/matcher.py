@@ -59,7 +59,7 @@ def make_matcher(cfg: Config, params=None,
     the compute dtype is the extractor's.  The model and every call run on
     `device`, which defaults to the card and raises without one.  On the
     card a shape that recurs is replayed as a CUDA graph; the closure's
-    `calls` and `graphs` are its runner's."""
+    `calls`, `uploads` and `graphs` are its runner's."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' to "
@@ -80,6 +80,7 @@ def make_matcher(cfg: Config, params=None,
             return runner((desc0, valid0, uv0, desc1, uv1, valid1), kw)
 
     run.calls = runner.calls
+    run.uploads = runner.uploads
     run.graphs = runner.graphs
     return run
 

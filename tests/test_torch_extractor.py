@@ -3,8 +3,10 @@ sp_orb_slam_tpu_torch against the JAX package on the same images and
 parameters, on the CPU at a small size (96x128, K=128); plus the port's
 own copies of the config tree and the rendered-room dataset."""
 
+import collections
 import dataclasses
 import os
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -161,6 +163,62 @@ def test_make_extractor_cpu_runs_eagerly(jparams, images):
     assert run.calls == {"eager": 2} and not run.graphs
     for f in EXACT:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_make_extractor_cpu_counts_no_uploads(jparams, images):
+    """The closure exposes its runner's `uploads`, which on the CPU counts
+    nothing: eager calls stage no input."""
+    cfg = dataclasses.replace(Config(), tracking=dataclasses.replace(
+        Config().tracking, num_features=NF), runtime=dataclasses.replace(
+        Config().runtime, max_keypoints=K))
+    run = make_extractor(cfg, params_from_jax(jparams), device="cpu")
+    run(images)
+    assert isinstance(run.uploads, collections.Counter)
+    assert run.uploads == {} and run.calls == {"eager": 1}
+
+
+class _Sum(NamedTuple):
+    total: torch.Tensor
+    none: torch.Tensor | None
+
+
+def test_graph_runner_cpu_stages_nothing(images):
+    """On the CPU the runner calls the function eagerly on the host input
+    as it is: no graph, no pinned buffer, no upload counted."""
+    def fn(x, *, scale):
+        return _Sum(x.sum((1, 2)) * scale, None)
+
+    runner = graphs.GraphRunner(fn, torch.device("cpu"), "sum",
+                                lambda a: (torch.as_tensor(a),))
+    got = [runner(images, dict(scale=2.0)) for _ in range(2)]
+    assert runner.calls == {"eager": 2} and runner.uploads == {}
+    assert not runner.graphs and runner._stream is None
+    want = torch.from_numpy(images).sum((1, 2)) * 2.0
+    for g in got:
+        assert torch.equal(g.total, want) and g.none is None
+
+
+@pytest.mark.parametrize("piece,shape,dtype,pieces", [
+    (4096, (3, 40, 52), torch.float32, 7),     # the last piece ragged
+    (4096, (2, 60, 80), torch.bfloat16, 5),
+    (1 << 20, (3, 40, 52), torch.float32, 1),  # on this thread
+    (4096, (4096,), torch.uint8, 1),
+])
+def test_stage_copies_every_byte(monkeypatch, piece, shape, dtype, pieces):
+    """`_stage` copies a host input into the pinned buffer and on into
+    the static input, byte for byte, whole or in pieces (here plain host
+    tensors in the buffers' places)."""
+    monkeypatch.setattr(graphs, "STAGE_PIECE_BYTES", piece)
+    g = torch.Generator().manual_seed(3)
+    x = (torch.rand(shape, generator=g) * 255).to(dtype)
+    host, dev = torch.zeros_like(x), torch.zeros_like(x)
+    p = graphs._Pinned(host, graphs._bytes(host),
+                       graphs._bytes(host).numpy(), graphs._bytes(dev))
+    cuts = graphs._cuts(x.numel() * x.element_size())
+    assert len(cuts) - 1 == pieces
+    graphs._stage(p, x)
+    assert torch.equal(graphs._bytes(host), graphs._bytes(x))
+    assert torch.equal(graphs._bytes(dev), graphs._bytes(x))
 
 
 def test_extract_rejects_bad_options(jparams, images):

@@ -518,7 +518,8 @@ def _assert_same_features(got, want, what):
 @pytest.mark.parametrize("dtype,B", [("float32", 1), ("bfloat16", 8),
                                      ("bfloat16", 32)])
 def test_graph_replay_bit_equal_to_extract(cuda, dtype, B):
-    """Eager, capture, then two replays of one closure, each call's
+    """Eager, capture, then two replays of one closure on pageable host
+    batches, staged through the graph's pinned buffer, each call's
     Features bit-equal in every field to the module's eager `extract` on
     the same batch, read after the last replay."""
     from sp_orb_slam_tpu_torch.extractor import (extract, extract_options,
@@ -532,6 +533,8 @@ def test_graph_replay_bit_equal_to_extract(cuda, dtype, B):
     batches = [_host_images(B, seed=s) for s in range(4)]
     got = [run(x) for x in batches]
     assert run.calls == {"eager": 1, "capture": 1, "replay": 2}
+    assert run.uploads["staged"] == 3    # back to back, a staging copy
+                                         # may wait ("waited")
     model = SuperPoint(state).to(cuda).eval()
     with torch.inference_mode():
         want = [extract(model, torch.as_tensor(x, device=cuda),
@@ -601,7 +604,8 @@ def test_graph_two_extractors_alternate(cuda):
 def test_graph_cache_keys_and_eviction(cuda):
     """A new shape runs eagerly, then captures, then replays; the closure
     keeps GRAPHS_KEPT keys and the least recently used goes first, its
-    graph freed, so its shape runs eagerly again."""
+    graph and pinned staging buffer freed, so its shape runs eagerly
+    again."""
     import gc
     import weakref
 
@@ -624,11 +628,13 @@ def test_graph_cache_keys_and_eviction(cuda):
     keys = {k[0]: k for k in run.graphs}
     assert list(keys) == [first]
     graph = weakref.ref(run.graphs[keys[first]].graph)
+    staging = weakref.ref(run.graphs[keys[first]].staging[0].host)
+    assert staging().is_pinned()
     for s in shapes[1:]:                     # n more shapes: first goes
         run(x[s])
     assert [k[0] for k in run.graphs] == shapes[1:]
     gc.collect()
-    assert graph() is None
+    assert graph() is None and staging() is None
     run(x[first])
     assert run.calls == {"eager": n + 2, "capture": 1, "replay": 1}
     assert [k[0] for k in run.graphs] == shapes[2:] + [first]
@@ -691,10 +697,11 @@ def _inside(host, span):
 
 @pytest.mark.parametrize("source", ["host", "device"])
 def test_graph_replay_syncs_and_device_events(cuda, source):
-    """A replay waits for the card only in the upload of a host batch (none
-    for a batch already on the card), launches the graph once, and the
-    profiler sees each kernel of a warm eager call as its own device
-    event."""
+    """A replay waits for the card nowhere, for a host batch too (staged
+    through pinned memory and copied asynchronously), where a warm eager
+    call's upload of a host batch waits once; it launches the graph once,
+    and the profiler sees each kernel of a warm eager call as its own
+    device event."""
     from sp_orb_slam_tpu_torch.extractor import make_extractor
     from sp_orb_slam_tpu_torch.models.weights import load_checkpoint
 
@@ -714,16 +721,106 @@ def test_graph_replay_syncs_and_device_events(cuda, source):
     assert run.calls == {"eager": 1, "capture": 1, "replay": 1}
     in_extract = _inside(host_r, "sp/extract")
     syncs = [n for n in in_extract if n in SYNCS]
-    upload_syncs = [n for n in _inside(host_r, "sp/extract/upload")
-                    if n in SYNCS]
-    assert syncs == upload_syncs
-    assert len(syncs) == (1 if source == "host" else 0)
+    assert syncs == []
+    in_upload = _inside(host_r, "sp/extract/upload")
+    assert ("sp/extract/upload/stage" in in_upload) == (source == "host")
+    assert run.uploads == ({"staged": 2} if source == "host"
+                           else {"direct": 2})
     assert in_extract.count("cudaGraphLaunch") == 1
     assert "sp/extract/replay" in in_extract
     eager_syncs = [n for n in _inside(host_e, "sp/extract") if n in SYNCS]
-    assert len(eager_syncs) == len(syncs)     # the forward's and the
-    kernels = collections.Counter(             # selection's are gone
+    # the eager upload's sync alone: the forward's and the selection's are gone
+    assert len(eager_syncs) == (1 if source == "host" else 0)
+    kernels = collections.Counter(
         n for n, _, _ in dev_e if not n.startswith("Memcpy"))
     replayed = collections.Counter(n for n, _, _ in dev_r)
     missing = {n: c for n, c in kernels.items() if replayed[n] < c}
     assert len(kernels) > 50 and not missing, missing
+
+
+def _eager_features(cfg, state, batches, cuda):
+    from sp_orb_slam_tpu_torch.extractor import extract, extract_options
+    from sp_orb_slam_tpu_torch.models.superpoint import SuperPoint
+
+    model = SuperPoint(state).to(cuda).eval()
+    with torch.inference_mode():
+        want = [extract(model, torch.as_tensor(x, device=cuda),
+                        **extract_options(cfg)) for x in batches]
+    torch.cuda.synchronize()
+    return want
+
+
+def test_graph_staging_buffer_guarded(cuda):
+    """Two replays handed in back to back on different host batches,
+    neither read before both are in, while the card is held busy: the
+    second staging copy finds the first batch's copy to the card not yet
+    run, waits for it ("waited"), and each call returns the features of
+    its own batch."""
+    from sp_orb_slam_tpu_torch.extractor import make_extractor
+    from sp_orb_slam_tpu_torch.models.weights import load_checkpoint
+
+    cfg, state = _graph_cfg("float32"), load_checkpoint(WEIGHTS)
+    run = make_extractor(cfg, state, device=cuda)
+    batches = [_host_images(2, seed=30 + s) for s in range(4)]
+    run(batches[0])                                   # eager
+    run(batches[1])                                   # capture
+    torch.cuda.synchronize()
+    torch.cuda._sleep(500_000_000)    # holds the stream for ~0.3 s
+    got = [run(batches[2]), run(batches[3])]
+    torch.cuda.synchronize()
+    assert run.calls == {"eager": 1, "capture": 1, "replay": 2}
+    assert run.uploads == {"staged": 3, "waited": 1}
+    want = _eager_features(cfg, state, batches[2:], cuda)
+    assert not torch.equal(want[0].uv, want[1].uv)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_same_features(g, w, f"replay {i}")
+
+
+def test_graph_direct_uploads(cuda):
+    """A batch already on the card and one in pinned host memory reach the
+    graph's static input as they are ("direct"), with no pinned buffer
+    allocated; a pageable host batch into the same graph is then staged.
+    Every call bit-equal to the eager `extract`."""
+    from sp_orb_slam_tpu_torch.extractor import make_extractor
+    from sp_orb_slam_tpu_torch.models.weights import load_checkpoint
+
+    cfg, state = _graph_cfg("bfloat16"), load_checkpoint(WEIGHTS)
+    run = make_extractor(cfg, state, device=cuda)
+    batches = [_host_images(4, seed=40 + s) for s in range(5)]
+    xs = [torch.as_tensor(x, device=cuda) for x in batches[:3]]
+    xs += [torch.as_tensor(batches[3]).pin_memory(), batches[4]]
+    got = [run(xs[0]), run(xs[1]), run(xs[2])]        # eager, capture, replay
+    assert run.uploads == {"direct": 2}
+    (g,) = run.graphs.values()
+    assert g.staging == [None]
+    got.append(run(xs[3]))                            # pinned host batch
+    assert run.uploads == {"direct": 3} and g.staging == [None]
+    got.append(run(xs[4]))                            # pageable host batch
+    assert run.uploads == {"direct": 3, "staged": 1}
+    assert g.staging[0].host.is_pinned()
+    torch.cuda.synchronize()
+    assert run.calls == {"eager": 1, "capture": 1, "replay": 3}
+    want = _eager_features(cfg, state, batches, cuda)
+    for i, (a, w) in enumerate(zip(got, want)):
+        _assert_same_features(a, w, f"call {i}")
+
+
+def test_graph_closed_loop_never_waits(cuda):
+    """The benchmark's closed loop, two batches in flight, each collected
+    (read back to the host) after the next is handed in: every replay is
+    staged and none waits on the staging buffer."""
+    from sp_orb_slam_tpu_torch.extractor import make_extractor
+    from sp_orb_slam_tpu_torch.models.weights import load_checkpoint
+
+    run = make_extractor(_graph_cfg("bfloat16"), load_checkpoint(WEIGHTS),
+                         device=cuda)
+    batches = [_host_images(32, seed=50 + s) for s in range(3)]
+    pending, counts = collections.deque(), []
+    for k in range(10):
+        pending.append(run(batches[k % 3]))
+        if len(pending) >= 2:
+            counts.append(pending.popleft().count.cpu())
+    counts += [f.count.cpu() for f in pending]
+    assert run.calls == {"eager": 1, "capture": 1, "replay": 8}
+    assert run.uploads == {"staged": 9}
+    assert all(torch.equal(counts[k], counts[k % 3]) for k in range(10))

@@ -253,6 +253,15 @@ def test_make_matcher_cpu_runs_eagerly(model, frames):
                                                   init_matcher="bogus"))
 
 
+def test_make_matcher_cpu_counts_no_uploads(frames):
+    """The closure exposes its runner's `uploads`, which on the CPU counts
+    nothing."""
+    run = tmatcher.make_matcher(_lg_config(), device="cpu")
+    uv0, d0, v0, uv1, d1, v1 = frames
+    run(d0, v0, uv0, d1, uv1, v1)
+    assert run.uploads == {} and run.calls == {"eager": 1}
+
+
 class _Spy:
     """Counts the calls of a wrapped callable."""
 
